@@ -1,0 +1,154 @@
+"""Load the JAX package's flax variables into the port's AVModel.
+
+``load_jax_variables(model, params, batch_stats)`` takes the flax trees as
+nested dicts of numpy arrays and fills the module strictly: every flax leaf
+must be used and every parameter and buffer of the module must be filled,
+with matching shapes, or it raises. Then both frameworks compute the same
+function. Layout transforms (the key walk follows
+``selavi_tpu/train/torch_export.py``):
+
+* conv kernels ``[*k, I, O] -> [O, I, *k]``;
+* head-stack Dense kernels stay ``[H, I, O]`` (the port's stacked layout);
+* BatchNorm ``scale/bias`` -> ``weight/bias`` and batch stats
+  ``mean/var`` -> ``running_mean/running_var``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Iterator, Tuple
+
+import numpy as np
+import torch
+
+
+def _leaf_paths(tree, prefix=()) -> Iterator[Tuple[str, ...]]:
+    for key, value in tree.items():
+        if isinstance(value, dict) or hasattr(value, "items"):
+            yield from _leaf_paths(value, prefix + (key,))
+        else:
+            yield prefix + (key,)
+
+
+class _Walker:
+    """Reads flax leaves by path and remembers which were read."""
+
+    def __init__(self, params: dict, batch_stats: dict):
+        self.trees = {"params": params, "batch_stats": batch_stats}
+        self.used = set()
+        self.out: Dict[str, np.ndarray] = {}
+
+    def take(self, collection: str, *path) -> np.ndarray:
+        node = self.trees[collection]
+        for key in path:
+            if key not in node:
+                raise KeyError(
+                    f"flax {collection} has no {'/'.join(path)}"
+                )
+            node = node[key]
+        self.used.add((collection,) + tuple(path))
+        return np.asarray(node, np.float32)
+
+    def conv(self, tkey: str, *path):
+        k = self.take("params", *path, "kernel")
+        nd = k.ndim
+        self.out[tkey] = np.transpose(k, (nd - 1, nd - 2) + tuple(range(nd - 2)))
+
+    def bn(self, tprefix: str, *path):
+        self.out[f"{tprefix}.weight"] = self.take("params", *path, "scale")
+        self.out[f"{tprefix}.bias"] = self.take("params", *path, "bias")
+        self.out[f"{tprefix}.running_mean"] = self.take("batch_stats", *path,
+                                                        "mean")
+        self.out[f"{tprefix}.running_var"] = self.take("batch_stats", *path,
+                                                       "var")
+
+    def unused(self):
+        every = {("params",) + p for p in _leaf_paths(self.trees["params"])}
+        every |= {("batch_stats",) + p
+                  for p in _leaf_paths(self.trees["batch_stats"])}
+        return sorted("/".join(p) for p in every - self.used)
+
+
+def _walk_video(w: _Walker, has_downsample) -> None:
+    v = "video_network"
+    w.conv(f"{v}.stem_spatial.weight", v, "stem_spatial", "conv")
+    w.bn(f"{v}.stem_bn1", v, "stem_bn1", "bn")
+    w.conv(f"{v}.stem_temporal.weight", v, "stem_temporal", "conv")
+    w.bn(f"{v}.stem_bn2", v, "stem_bn2", "bn")
+    for stage in range(1, 5):
+        for block in range(2):
+            name = f"layer{stage}_block{block}"
+            t = f"{v}.{name}"
+            for ci in ("conv1", "conv2"):
+                w.conv(f"{t}.{ci}.spatial.weight", v, name, ci, "spatial",
+                       "conv")
+                w.bn(f"{t}.{ci}.bn_mid", v, name, ci, "bn_mid", "bn")
+                w.conv(f"{t}.{ci}.temporal.weight", v, name, ci, "temporal",
+                       "conv")
+            w.bn(f"{t}.bn1", v, name, "bn1", "bn")
+            w.bn(f"{t}.bn2", v, name, "bn2", "bn")
+            if has_downsample(f"{t}.downsample.conv.weight"):
+                w.conv(f"{t}.downsample.conv.weight", v, name, "downsample",
+                       "conv")
+                w.bn(f"{t}.downsample.bn", v, name, "downsample", "bn", "bn")
+
+
+def _walk_audio(w: _Walker, n_blocks: int, has_downsample) -> None:
+    a = "audio_network"
+
+    def convbn(tprefix, *path):
+        w.conv(f"{tprefix}.conv.weight", *path, "Conv_0")
+        w.bn(f"{tprefix}.bn", *path, "BatchNorm_0")
+
+    convbn(f"{a}.stem", a, "ConvBN_0")
+    for i in range(n_blocks):
+        t = f"{a}.blocks.{i}"
+        block = f"BasicBlock2D_{i}"
+        convbn(f"{t}.conv1", a, block, "ConvBN_0")
+        convbn(f"{t}.conv2", a, block, "ConvBN_1")
+        if has_downsample(f"{t}.downsample.conv.weight"):
+            convbn(f"{t}.downsample", a, block, "ConvBN_2")
+
+
+def _walk_heads(w: _Walker, name: str, use_mlp: bool) -> None:
+    if use_mlp:
+        w.out[f"{name}.hidden_weight"] = w.take("params", name, "heads",
+                                                "hidden", "kernel")
+        w.out[f"{name}.bn_weight"] = w.take("params", name, "heads", "bn",
+                                            "scale")
+        w.out[f"{name}.bn_bias"] = w.take("params", name, "heads", "bn",
+                                          "bias")
+        w.out[f"{name}.bn_running_mean"] = w.take("batch_stats", name,
+                                                  "heads", "bn", "mean")
+        w.out[f"{name}.bn_running_var"] = w.take("batch_stats", name,
+                                                 "heads", "bn", "var")
+    w.out[f"{name}.proj_weight"] = w.take("params", name, "heads", "proj",
+                                          "kernel")
+    w.out[f"{name}.proj_bias"] = w.take("params", name, "heads", "proj",
+                                        "bias")
+
+
+def load_jax_variables(model, params: dict, batch_stats: dict) -> None:
+    """Fill ``model`` (an ``AVModel``) from flax ``params``/``batch_stats``
+    trees of numpy arrays. Raises on a missing or extra key or a shape
+    mismatch on either side."""
+    state = model.state_dict()
+    w = _Walker(params, batch_stats or {})
+    _walk_video(w, lambda key: key in state)
+    _walk_audio(w, len(model.audio_network.blocks), lambda key: key in state)
+    _walk_heads(w, "heads_v", model.heads_v.use_mlp)
+    _walk_heads(w, "heads_a", model.heads_a.use_mlp)
+    extra = w.unused()
+    if extra:
+        raise KeyError(f"flax leaves with no place in the model: {extra}")
+    missing = sorted(set(state) - set(w.out))
+    unexpected = sorted(set(w.out) - set(state))
+    if missing or unexpected:
+        raise KeyError(f"missing {missing}, unexpected {unexpected}")
+    with torch.no_grad():
+        for key, value in w.out.items():
+            target = state[key]
+            if tuple(target.shape) != value.shape:
+                raise ValueError(
+                    f"{key}: model {tuple(target.shape)} vs flax {value.shape}"
+                )
+            target.copy_(torch.tensor(value))

@@ -1,0 +1,97 @@
+"""The port's slice as a whole, on the CPU: the Trainer's fit() with BN
+warmup, one SK re-clustering (with modality matching) and an epoch of
+train steps; plus import hygiene and the no-silent-CPU rule."""
+
+import pkgutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import selavi_tpu_torch
+from selavi_tpu_torch.config import parse_arguments
+from selavi_tpu_torch.data.synthetic import SyntheticAVDataset
+from selavi_tpu_torch.models.av_model import load_model
+from selavi_tpu_torch.ops import sinkhorn_fused
+from selavi_tpu_torch.train.loop import Trainer
+
+torch.set_num_threads(1)
+
+TINY = (
+    "--ds_name synthetic --num_data_samples 16 --mlp_dim 8 --headcount 2 "
+    "--epochs 1 --batch_size 4 --num_frames 4 --train_crop_size 32 "
+    "--aud_sample_rate 16000 --aud_spec_type 1 --nopts 1 --match true "
+    "--bn_warmup_batches 1 --workers 0 --compute_dtype float32 "
+    "--sk_agg_batch 8 --base_lr 0.01 --wd 0.00001"
+)
+
+
+def _dataset(args):
+    return SyntheticAVDataset(
+        num_samples=args.num_data_samples, num_classes=4,
+        num_frames=args.num_frames, crop_size=args.train_crop_size,
+        aud_sample_rate=args.aud_sample_rate,
+        aud_spec_type=args.aud_spec_type, seed=args.seed,
+    )
+
+
+def test_synthetic_example_layout():
+    args = parse_arguments().parse_args(TINY.split())
+    ds = _dataset(args)
+    ex = ds.get_example(3, np.random.default_rng(0))
+    assert ex["video"].shape == (4, 32, 32, 3) and ex["video"].dtype == np.uint8
+    assert ex["audio"].shape == ds.spec_shape() == (40, 99)
+    assert ex["audio"].dtype == np.float32 and np.isfinite(ex["audio"]).all()
+    assert ex["index"] == 3 and ex["label"] == ds.labels[3]
+
+
+def test_trainer_fit_runs_the_slice_on_cpu():
+    args = parse_arguments().parse_args(TINY.split())
+    sinkhorn_fused.reset_launches()
+    trainer = Trainer(args, _dataset(args), device="cpu")
+    heads_before = trainer.model.heads_a.proj_weight.detach().clone()
+    history = trainer.fit()
+
+    sk = [h for h in history if "sk_cost" in h]
+    assert len(sk) == 1 and sk[0]["iteration"] == 0
+    assert np.isfinite(sk[0]["sk_cost"]) and sk[0]["sk_iters_max"] < 2000
+    losses = [h["loss"] for h in history if "loss" in h]
+    assert losses and all(np.isfinite(losses))
+    # first logged loss of the fresh heads is near ln K
+    assert abs(losses[0] - np.log(8)) < 0.5
+    labels = trainer.selflabels
+    assert labels.shape == (16, 2) and labels.dtype == np.int32
+    assert all(len(np.unique(labels[:, h])) > 1 for h in range(2))
+    # matching at the first SK step permuted the audio heads in place
+    assert not torch.equal(trainer.model.heads_a.proj_weight, heads_before)
+    assert sinkhorn_fused.launches == 0  # the CPU runs the plain version
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    modules = [m.name for m in pkgutil.walk_packages(
+        selavi_tpu_torch.__path__, "selavi_tpu_torch.")]
+    assert "selavi_tpu_torch.ops.sinkhorn_fused" in modules
+    code = (
+        "import importlib, sys\n"
+        f"for m in {modules!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'flax', 'optax')\n"
+        "       or m.split('.')[0] in ('jax', 'flax', 'optax', 'selavi_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_entry_points_without_a_device_refuse_the_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = parse_arguments().parse_args(TINY.split())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(args, _dataset(args))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_model(headcount=1, num_classes=4)
