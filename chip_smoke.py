@@ -5,15 +5,22 @@ Run from the root of a checkout on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernel from the checkout's sources
-(``selavi_tpu_torch/csrc/fused_sk.cu`` into ``build/selavi_tpu_torch/``),
-holds it against its plain PyTorch version on the card, drives the port's
-main path (the Trainer: BN warmup, one Sinkhorn-Knopp re-clustering with
-modality matching, an epoch of train steps) at the full width of the
-reference VGG-Sound recipe, and times the kernel and the train step. Every
-phase raises on failure, so any failure exits non-zero. Standard output
-ends with a line ``{"kernels": [...]}`` and then the result line
-``{"ok": true, "device": {...}}``; logs go to standard error.
+It builds the port's CUDA kernels from the checkout's sources
+(``selavi_tpu_torch/csrc/{fused_sk,conv3x3}.cu`` into
+``build/selavi_tpu_torch/``, one ``nvcc`` per source, started together),
+holds each kernel against its plain PyTorch version on the card, and drives
+the port's two paths with the launch counts set to 0 just before and read
+just after each:
+- the main path: the Trainer (BN warmup, one Sinkhorn-Knopp re-clustering
+  with modality matching, an epoch of train steps) at the full width of
+  the reference VGG-Sound recipe, which runs the fused SK kernel;
+- the conv probe: ``selavi_tpu_torch.experiments.conv3x3``'s ``check()``
+  and ``bench()``, which run the conv3x3 forward, dgrad and wgrad kernels
+  and time them beside cuDNN at R(2+1)D layer1's shape.
+Then it times the SK kernel and the train step. Every phase raises on
+failure, so any failure exits non-zero. Standard output ends with a line
+``{"kernels": [...]}`` and then the result line ``{"ok": true, "device":
+{...}}``; logs go to standard error.
 
 Without a CUDA device, or outside a checkout, it exits non-zero and prints
 no result.
@@ -24,9 +31,9 @@ from __future__ import annotations
 import json
 import logging
 import math
-import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 # Main path: the reference VGG-Sound recipe at full width (R(2+1)D-18 with
 # parity midplanes, ResNet-9 audio, 10 heads, K=309, 30x112x112 video,
@@ -44,37 +51,31 @@ PAPER_N, PAPER_K = 170752, 309  # VGG-Sound SK scale
 # online LSE merged across blocks vs torch's reductions).
 VEC_RTOL = 1e-5  # of max |ref|, on log_alpha_next and log_beta_new
 ERR_RTOL = 1e-5  # relative, on the error sum
-FP32_PEAK_FLOPS = 67e12  # H100 SXM, non-tensor FP32 (data sheet)
 OPS_PER_ELEMENT = 9  # add, max, sub, exp, add (row); add, max, exp, add (col)
+# Conv kernels vs plain, of max |ref|. fp32 sums (the fp32 outputs, and the
+# fp32 wgrad of bf16 inputs, whose products are exact): the same products
+# summed in another order. 1e-5 covers sums of up to 4096 terms; the error
+# of a longer sum grows as the square root of its length (the wgrad sums
+# N*H*W terms, 1.5M at the bench shape). A bf16 output may also round to
+# the neighbouring bf16 value: one bf16 ulp at the largest value, 2^-7 of
+# it.
+CONV_FP32_RTOL = 1e-5
+CONV_FP32_TERMS = 4096
+BF16_ULP = 2.0 ** -7
+# Beside the probe's shapes: channel counts that no 16-byte load fits (the
+# kernels' element-load paths), ragged pixel, channel and output tiles.
+CONV_RAGGED_SHAPE = (2, 9, 13, 3, 136)
+# (name in the kernels line, the TPU kernel it replaces: file:line)
+CONV_KERNELS = (
+    ("conv3x3", "experiments/pallas_conv3x3.py:94"),
+    ("conv3x3_dgrad", "experiments/pallas_conv3x3.py:194"),
+    ("conv3x3_wgrad", "experiments/pallas_conv3x3.py:162"),
+)
 
 
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError(f"check failed: {what}")
-
-
-def memory_bandwidth(torch) -> float:
-    """Bytes/s of the card from its memory clock and bus width (HBM is
-    double data rate); the H100 SXM data sheet rate if torch lacks them."""
-    props = torch.cuda.get_device_properties(0)
-    clock_khz = getattr(props, "memory_clock_rate", 0)
-    bus_bits = getattr(props, "memory_bus_width", 0)
-    if clock_khz and bus_bits:
-        return 2.0 * clock_khz * 1e3 * bus_bits / 8
-    return 3.35e12
-
-
-def cuda_ms(torch, fn, reps: int = 50, warmup: int = 5) -> float:
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def sk_instance(torch, n, k, seed, device):
@@ -239,22 +240,90 @@ def time_train(torch, trainer, report):
     report["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
 
 
+def conv_kernels_vs_plain(torch, conv, device, report):
+    """Phase 2c: the conv kernels against their plain versions on the card,
+    at the probe's check shapes, a ragged shape and the bench shape, in
+    fp32 and bf16; the weight gradient must be bit-identical on repeat."""
+    from selavi_tpu_torch.experiments.conv3x3 import BENCH_SHAPE, CHECK_SHAPES
+
+    worst = {name: 0.0 for name, _ in CONV_KERNELS}
+    gen = torch.Generator(device=device).manual_seed(0)
+    for shape in CHECK_SHAPES + (CONV_RAGGED_SHAPE, BENCH_SHAPE):
+        n, h, wd, c, co = shape
+        x32 = torch.randn(n, h, wd, c, generator=gen, device=device)
+        w32 = 0.1 * torch.randn(3, 3, c, co, generator=gen, device=device)
+        g32 = torch.randn(n, h, wd, co, generator=gen, device=device)
+        for dtype in (torch.float32, torch.bfloat16):
+            x, w, g = (t.to(dtype) for t in (x32, w32, g32))
+            cases = (
+                ("conv3x3", conv.conv3x3, conv.conv3x3_plain, (x, w)),
+                ("conv3x3_dgrad", conv.conv3x3_dgrad,
+                 conv.conv3x3_dgrad_plain, (g, w)),
+                ("conv3x3_wgrad", conv.conv3x3_wgrad,
+                 conv.conv3x3_wgrad_plain, (x, g)),
+            )
+            for name, kernel, plain, args in cases:
+                terms = n * h * wd if name == "conv3x3_wgrad" else \
+                    9 * args[0].shape[3]
+                rtol = CONV_FP32_RTOL * math.sqrt(
+                    max(1.0, terms / CONV_FP32_TERMS))
+                if name != "conv3x3_wgrad" and dtype == torch.bfloat16:
+                    rtol += BF16_ULP
+                got = kernel(*args)
+                ref = plain(*args)
+                again = kernel(*args)
+                torch.cuda.synchronize()
+                diff = float((got.float() - ref.float()).abs().max())
+                scale = float(ref.float().abs().max())
+                same = torch.equal(got, again)
+                print(f"conv kernel vs plain {name} {shape} "
+                      f"{str(dtype)[6:]}: max|diff| {diff:.3g} (scale "
+                      f"{scale:.3g}, tolerance {rtol:.3g} of scale), repeat "
+                      f"bit-identical {same}", flush=True)
+                check(got.dtype == ref.dtype and got.shape == ref.shape,
+                      f"{name} {shape} {dtype}: dtype and shape")
+                check(bool(torch.isfinite(got).all()),
+                      f"{name} {shape} {dtype}: finite")
+                check(diff <= rtol * scale, f"{name} {shape} {dtype}")
+                if name == "conv3x3_wgrad":
+                    check(same, f"{name} {shape} {dtype}: deterministic")
+                worst[name] = max(worst[name], diff)
+            del x, w, g, got, ref, again
+        del x32, w32, g32
+    report["conv_max_abs_err"] = worst
+
+
+def conv_probe_path(torch, conv, device, report):
+    """Phase 5: the conv probe's entry point (check, then bench); every
+    conv kernel count must move."""
+    from selavi_tpu_torch.experiments import conv3x3 as probe
+
+    conv.reset_launches()
+    probe.check(device)
+    bench = probe.bench(device)
+    torch.cuda.synchronize()
+    launches = dict(conv.launches)
+    print(f"conv probe path: launches {launches}", flush=True)
+    for name, _ in CONV_KERNELS:
+        check(launches[name] > 0, f"the probe path launched {name}")
+    report["conv_launches"] = launches
+    report["conv_bench"] = bench
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    from selavi_tpu_torch import measure
+    from selavi_tpu_torch.ops import conv3x3 as conv
     from selavi_tpu_torch.ops import sinkhorn_fused as sf
 
     logging.basicConfig(level=logging.INFO, stream=sys.stderr,
                         format="%(asctime)s %(name)s %(message)s")
     t_start = time.perf_counter()
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    card = measure.card_description()
     print(f"card: {card}", flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}", flush=True)
@@ -264,17 +333,22 @@ def main() -> int:
     print("tf32: matmul off, cudnn off", flush=True)
     device = torch.device("cuda", 0)
 
+    # One nvcc per source, started together.
     t0 = time.perf_counter()
-    lib = sf.build_library()
-    print(f"built {lib.name} in {time.perf_counter() - t0:.1f} s", flush=True)
+    with ThreadPoolExecutor(2) as pool:
+        libs = list(pool.map(lambda m: m.build_library(), (sf, conv)))
+    print(f"built {', '.join(lib.name for lib in libs)} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     report: dict = {}
     inputs = kernel_vs_plain(torch, sf, device, report)
     solver_fused_vs_plain(torch, device, report)
+    conv_kernels_vs_plain(torch, conv, device, report)
     trainer = main_path(torch, sf, device, report)
+    conv_probe_path(torch, conv, device, report)
 
-    # Phase 4a: the kernel at paper scale, against its byte bound.
-    bw = memory_bandwidth(torch)
+    # Phase 4a: the SK kernel at paper scale, against its byte bound.
+    bw = measure.memory_bandwidth(device)
     times = {}
     for dtype in (torch.float32, torch.bfloat16):
         args = inputs[(PAPER_N, PAPER_K, dtype)]
@@ -282,12 +356,11 @@ def main() -> int:
         nbytes = (m.numel() * m.element_size() + 2 * 4 * PAPER_N
                   + 3 * 4 * PAPER_K + 4)
         bytes_ms = nbytes / bw * 1e3
-        ops_ms = OPS_PER_ELEMENT * m.numel() / FP32_PEAK_FLOPS * 1e3
+        ops_ms = OPS_PER_ELEMENT * m.numel() / measure.FP32_PEAK_FLOPS * 1e3
         times[dtype] = {
-            "ms": cuda_ms(torch, lambda: sf.fused_sk_iteration(*args)),
-            "plain_ms": cuda_ms(torch,
-                                lambda: sf.fused_sk_iteration_plain(*args),
-                                reps=20),
+            "ms": measure.cuda_ms(lambda: sf.fused_sk_iteration(*args)),
+            "plain_ms": measure.cuda_ms(
+                lambda: sf.fused_sk_iteration_plain(*args), reps=20),
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "bytes": nbytes,
@@ -324,6 +397,22 @@ def main() -> int:
         "bound_by": fp32["bound_by"],
         "library_ms": None,
     }]
+    # The conv kernels at the probe's bench shape in bf16, as it times them.
+    for name, replaces in CONV_KERNELS:
+        t = report["conv_bench"][(name, "bfloat16")]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "selavi_tpu_torch/csrc/conv3x3.cu",
+            "replaces": replaces,
+            "launches": report["conv_launches"][name],
+            "max_abs_err": report["conv_max_abs_err"][name],
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+        })
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -17,21 +17,14 @@ root of the checkout.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
-import shutil
-import subprocess
 from pathlib import Path
 
 import torch
 
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "fused_sk.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "selavi_tpu_torch"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
-)
+from selavi_tpu_torch.ops import _build
+
+SOURCE = _build.CSRC / "fused_sk.cu"
 ROWS_PER_BLOCK = 256  # rows of M per block of pass 1
 MAX_K = 512  # csrc/fused_sk.cu: 32 lanes x kMaxKpl columns held per row
 
@@ -46,34 +39,10 @@ def reset_launches() -> None:
     launches = 0
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    candidate = Path(cuda_home) / "bin" / "nvcc"
-    if candidate.exists():
-        return str(candidate)
-    raise RuntimeError("nvcc not found: the fused SK kernel cannot be built")
-
-
 def build_library() -> Path:
-    """Compile ``csrc/fused_sk.cu`` into a shared library (cached by the
-    source's content hash) and return its path."""
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:12]
-    out = BUILD_DIR / f"libfused_sk_{digest}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)
-    return out
+    """Compile ``csrc/fused_sk.cu`` (see ``ops/_build.py``) and return the
+    library's path."""
+    return _build.build_library(SOURCE)
 
 
 def _library():

@@ -4,7 +4,9 @@ BN warmup, then the epoch loop: each step trains on the current
 self-labels, and on the power-law schedule ``maybe_cluster`` re-labels the
 dataset with Sinkhorn-Knopp (``selflabel/engine.py::cluster``). Loss is
 logged every 50 iterations. Checkpoints, resume, preemption, the host-RSS
-watchdog, multi-device meshes and data echo are not ported yet.
+watchdog, multi-device meshes and data echo are not ported yet: a flag that
+asks for one of them (``UNPORTED_FLAGS``) makes the Trainer raise rather
+than train something other than what the JAX Trainer would.
 """
 
 from __future__ import annotations
@@ -29,9 +31,41 @@ logger = logging.getLogger(__name__)
 
 LOG_EVERY = 50
 
+# Flags that the JAX Trainer, its dataset factory or its CLI read and this
+# Trainer does not implement: flag -> (default, the ROADMAP Queue 1 item
+# that ports it). Any other value raises NotImplementedError.
+UNPORTED_FLAGS = {
+    "device_spectrogram": (False, "1 (device audio frontend)"),
+    "worker_mode": ("thread", "2 (loader: process workers, data echo)"),
+    "data_echo": (1, "2 (loader: process workers, data echo)"),
+    "dual_data": (False, "3 (dual_data)"),
+    "resume": (False, "5 (checkpoints, resume and CLI)"),
+    "checkpoint_freq": (5, "5 (checkpoints, resume and CLI)"),
+    "async_checkpoint": (True, "5 (checkpoints, resume and CLI)"),
+    "dump_path": (".", "5 (checkpoints, resume and CLI)"),
+    "max_host_mem_gb": (0, "5 (checkpoints, resume and CLI)"),
+    "trace_profile": (False, "5 (checkpoints, resume and CLI)"),
+    "sk_cache_batches": (False, "6 (SK phase: native matcher, cached "
+                                "aggregation batches)"),
+    "model_axis": (1, "8 (multi-GPU)"),
+}
+
+
+def refuse_unported_flags(args) -> None:
+    """Raise NotImplementedError naming the first flag in ``args`` that asks
+    for something this Trainer does not implement."""
+    for flag, (default, item) in UNPORTED_FLAGS.items():
+        value = getattr(args, flag, default)
+        if value != default:
+            raise NotImplementedError(
+                f"--{flag} {value!r} is not implemented by the port's "
+                f"Trainer (only the default {default!r}); it is ROADMAP "
+                f"Queue 1 item {item}")
+
 
 class Trainer:
     def __init__(self, args, dataset, device=None):
+        refuse_unported_flags(args)
         self.args = args
         self.dataset = dataset
         self.device = resolve_device(device)

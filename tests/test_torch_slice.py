@@ -15,7 +15,7 @@ from selavi_tpu_torch.config import parse_arguments
 from selavi_tpu_torch.data.synthetic import SyntheticAVDataset
 from selavi_tpu_torch.models.av_model import load_model
 from selavi_tpu_torch.ops import sinkhorn_fused
-from selavi_tpu_torch.train.loop import Trainer
+from selavi_tpu_torch.train.loop import UNPORTED_FLAGS, Trainer
 
 torch.set_num_threads(1)
 
@@ -69,10 +69,32 @@ def test_trainer_fit_runs_the_slice_on_cpu():
     assert sinkhorn_fused.launches == 0  # the CPU runs the plain version
 
 
+# A non-default value of every flag in UNPORTED_FLAGS.
+UNPORTED_VALUES = {
+    "device_spectrogram": "true", "worker_mode": "process", "data_echo": "2",
+    "dual_data": "true", "resume": "true", "checkpoint_freq": "1",
+    "async_checkpoint": "false", "dump_path": "runs/elsewhere",
+    "max_host_mem_gb": "8", "trace_profile": "true",
+    "sk_cache_batches": "true", "model_axis": "2",
+}
+
+
+@pytest.mark.parametrize("flag", sorted(UNPORTED_VALUES))
+def test_trainer_refuses_unported_flags(flag):
+    assert set(UNPORTED_VALUES) == set(UNPORTED_FLAGS)
+    args = parse_arguments().parse_args(
+        TINY.split() + [f"--{flag}", UNPORTED_VALUES[flag]])
+    with pytest.raises(NotImplementedError,
+                       match=f"--{flag} .*ROADMAP Queue 1 item"):
+        Trainer(args, _dataset(args), device="cpu")
+
+
 def test_port_imports_neither_jax_nor_the_jax_package():
     modules = [m.name for m in pkgutil.walk_packages(
         selavi_tpu_torch.__path__, "selavi_tpu_torch.")]
-    assert "selavi_tpu_torch.ops.sinkhorn_fused" in modules
+    for name in ("ops.sinkhorn_fused", "ops.conv3x3", "ops._build",
+                 "experiments.conv3x3"):
+        assert f"selavi_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}:\n"
