@@ -16,7 +16,8 @@ just after each:
   the reference VGG-Sound recipe, which runs the fused SK kernel;
 - the conv probe: ``selavi_tpu_torch.experiments.conv3x3``'s ``check()``
   and ``bench()``, which run the conv3x3 forward, dgrad and wgrad kernels
-  and time them beside cuDNN at R(2+1)D layer1's shape.
+  and time them beside cuDNN at R(2+1)D layer1's shape (the bf16 wgrad
+  there on its wgmma kernel; the per-route counts show it).
 Then it times the SK kernel and the train step. Every phase raises on
 failure, so any failure exits non-zero. Standard output ends with a line
 ``{"kernels": [...]}`` and then the result line ``{"ok": true, "device":
@@ -62,9 +63,19 @@ OPS_PER_ELEMENT = 9  # add, max, sub, exp, add (row); add, max, exp, add (col)
 CONV_FP32_RTOL = 1e-5
 CONV_FP32_TERMS = 4096
 BF16_ULP = 2.0 ** -7
-# Beside the probe's shapes: channel counts that no 16-byte load fits (the
-# kernels' element-load paths), ragged pixel, channel and output tiles.
-CONV_RAGGED_SHAPE = (2, 9, 13, 3, 136)
+# Beside the probe's shapes, each with the kernel that takes its bf16
+# weight gradient (the probe's own shapes take wgmma): channel counts that
+# no 16-byte load fits (the element-load paths), ragged pixel, channel and
+# output tiles; a shape that fills no wgmma tile in any dimension (C = 72:
+# two channel blocks, Co = 136: two output blocks, 231 pixels: not a
+# multiple of the 64-pixel slice); image rows longer than a slice (W = 70,
+# a slice stays within one row); and an image of one pixel.
+CONV_RAGGED_SHAPES = {
+    (2, 9, 13, 3, 136): "wmma",
+    (3, 7, 11, 72, 136): "wgmma",
+    (2, 3, 70, 16, 24): "wgmma",
+    (1, 1, 1, 8, 8): "wgmma",
+}
 # (name in the kernels line, the TPU kernel it replaces: file:line)
 CONV_KERNELS = (
     ("conv3x3", "experiments/pallas_conv3x3.py:94"),
@@ -243,12 +254,13 @@ def time_train(torch, trainer, report):
 def conv_kernels_vs_plain(torch, conv, device, report):
     """Phase 2c: the conv kernels against their plain versions on the card,
     at the probe's check shapes, a ragged shape and the bench shape, in
-    fp32 and bf16; the weight gradient must be bit-identical on repeat."""
+    fp32 and bf16; the weight gradient must be bit-identical on repeat and
+    go through the kernel its shape names."""
     from selavi_tpu_torch.experiments.conv3x3 import BENCH_SHAPE, CHECK_SHAPES
 
     worst = {name: 0.0 for name, _ in CONV_KERNELS}
     gen = torch.Generator(device=device).manual_seed(0)
-    for shape in CHECK_SHAPES + (CONV_RAGGED_SHAPE, BENCH_SHAPE):
+    for shape in CHECK_SHAPES + tuple(CONV_RAGGED_SHAPES) + (BENCH_SHAPE,):
         n, h, wd, c, co = shape
         x32 = torch.randn(n, h, wd, c, generator=gen, device=device)
         w32 = 0.1 * torch.randn(3, 3, c, co, generator=gen, device=device)
@@ -262,6 +274,8 @@ def conv_kernels_vs_plain(torch, conv, device, report):
                 ("conv3x3_wgrad", conv.conv3x3_wgrad,
                  conv.conv3x3_wgrad_plain, (x, g)),
             )
+            route = "fp32" if dtype == torch.float32 else \
+                CONV_RAGGED_SHAPES.get(shape, "wgmma")
             for name, kernel, plain, args in cases:
                 terms = n * h * wd if name == "conv3x3_wgrad" else \
                     9 * args[0].shape[3]
@@ -269,7 +283,13 @@ def conv_kernels_vs_plain(torch, conv, device, report):
                     max(1.0, terms / CONV_FP32_TERMS))
                 if name != "conv3x3_wgrad" and dtype == torch.bfloat16:
                     rtol += BF16_ULP
+                conv.reset_launches()
                 got = kernel(*args)
+                if name == "conv3x3_wgrad":
+                    check(conv.wgrad_routes == {
+                        r: int(r == route) for r in conv.WGRAD_ROUTES},
+                        f"{name} {shape} {dtype} ran on {route}: "
+                        f"{conv.wgrad_routes}")
                 ref = plain(*args)
                 again = kernel(*args)
                 torch.cuda.synchronize()
@@ -295,7 +315,8 @@ def conv_kernels_vs_plain(torch, conv, device, report):
 
 def conv_probe_path(torch, conv, device, report):
     """Phase 5: the conv probe's entry point (check, then bench); every
-    conv kernel count must move."""
+    conv kernel count must move, and the bench shape's bf16 weight
+    gradient must go through the wgmma kernel."""
     from selavi_tpu_torch.experiments import conv3x3 as probe
 
     conv.reset_launches()
@@ -303,9 +324,26 @@ def conv_probe_path(torch, conv, device, report):
     bench = probe.bench(device)
     torch.cuda.synchronize()
     launches = dict(conv.launches)
-    print(f"conv probe path: launches {launches}", flush=True)
+    routes = dict(conv.wgrad_routes)
+    print(f"conv probe path: launches {launches}, weight-gradient routes "
+          f"{routes}", flush=True)
     for name, _ in CONV_KERNELS:
         check(launches[name] > 0, f"the probe path launched {name}")
+    n, h, wd, c, co = probe.BENCH_SHAPE
+    check(conv.wgrad_route(torch.bfloat16, c, co) == "wgmma",
+          "the bench shape's bf16 weight gradient routes to wgmma")
+    # C and Co fill whole tiles there: the split-K scratch is exactly the S
+    # partials of [9, C, Co] (13 MB at S = 44).
+    splits, _ = conv.split_plan("wgmma", n * h * wd, c, co)
+    check(conv._library().conv3x3_wgrad_scratch(c, co, splits)
+          == splits * 9 * c * co, "the bench shape's split-K scratch")
+    # The probe's only bf16 weight gradients are bench()'s, at the bench
+    # shape: all of them went through wgmma, none through wmma.
+    check(routes["wgmma"] > 0 and routes["wmma"] == 0,
+          "the probe path's bf16 weight gradients ran on wgmma")
+    check(routes["fp32"] > 0, "the probe path ran the fp32 weight gradient")
+    check(sum(routes.values()) == launches["conv3x3_wgrad"],
+          "weight-gradient routes add up to its launches")
     report["conv_launches"] = launches
     report["conv_bench"] = bench
 

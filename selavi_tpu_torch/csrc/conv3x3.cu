@@ -7,20 +7,48 @@
 //   conv3x3_dgrad_pallas (:194) reuses with the weights rotated and
 //   io-transposed: conv3x3_fwd below;
 // * conv3x3_wgrad_pallas (pallas_call at :162, body _wgrad_kernel at :126):
-//   conv3x3_wgrad below.
+//   conv3x3_wgrad below, whose bf16 route for C, Co % 8 == 0 is the
+//   wgmma kernel conv_wgrad_wgmma.
 //
 // With A = im2col(x) [M, 9C] (M = N*H*W output pixels; columns in the JAX
 // w.reshape(9C, Co) order: dy, then dx, then channel) the forward is
 // y = A @ W [M, Co] and the weight gradient is dW = A^T @ G [9C, Co].
 //
 // Bound: operations. At the probe's bench shape, x [480,56,56,64] -> 128
-// in bf16, each kernel does 2*1505280*576*128 = 2.22e11 FLOP: 0.224 ms at
+// in bf16, each kernel does 2*1505280*576*128 = 2.22e11 FLOP: 0.2244 ms at
 // the H100 SXM's 989 TFLOP/s dense bf16, against 0.173 ms for the 578 MB
 // that the forward must move at 3.35 TB/s. In fp32 (FMAs on the CUDA
 // cores, no TF32) the same FLOP take 3.31 ms at 67 TFLOP/s.
 //
-// Design (right and simple first; wgmma, TMA and a producer/consumer ring
-// are later work):
+// conv_wgrad_wgmma, the bf16 weight gradient for C and Co multiples of 8
+// with 16-byte aligned tensors (the wrapper picks it by shape; the other
+// bf16 shapes take conv_wgrad_bf16, fp32 takes conv_wgrad_f32):
+// * Block: one tap row dy, 64 channels of C, 128 of Co and one pixel range
+//   (split). Three consumer warpgroups, one for each dx, each hold a 64x128
+//   fp32 accumulator and issue wgmma.m64n128k16 (bf16 in, fp32 out) with
+//   both operands in shared memory. The reduction runs over pixels, so
+//   both are MN-major (transposed) tiles in the 128-byte swizzle.
+// * A ring of 4 stages in dynamic shared memory (173 KB), 3 slices of
+//   copies in flight. A stage is 64 pixels: the g tile (64 x 128, 16 KB),
+//   read by all three warpgroups, and one x tile of the 64 pixels shifted
+//   by dy, with a halo row on each side (66 x 64). Every 16-byte chunk is a
+//   cp.async that zero-fills on the image's top and bottom border, past
+//   the split's pixels (g) or the last pixel (x), and past C or Co. So each
+//   block reads its pixels of x and g once from L2: 3x their size in all
+//   (1.75 GB at the bench shape), where the previous design read them for
+//   each of the 9 taps (5.2 GB). Gathering one x tile per dx and counting
+//   on L1 for the overlap measured no L1 hits (cp.async .ca timed as .cg).
+// * The dx = 1 tile is the halo tile itself. The dx = 0 and dx = 2 tiles
+//   are built from its rows r - 1 and r + 1 by shared-memory copies, zero
+//   where pixel r is the first or last of its image row, while the tensor
+//   cores work on the previous slice: a one-row shift cannot be a
+//   descriptor offset, since the swizzle and the border both differ per dx.
+// * Split-K with no atomics: S ranges of pixels, S from the shape alone
+//   (3 * S blocks fill the 132 SMs in one wave at the bench shape: S = 44,
+//   13 MB of partials), summed in order by wgrad_reduce.
+//
+// Design of the other kernels (right and simple first; wgmma, TMA and a
+// producer/consumer ring are later work):
 // * x is read in place: the JAX wrapper pads x with jnp.pad (a full copy
 //   of the activation on every call); here the gather masks the 1-pixel
 //   border. Ragged M, K and Co are masked or zero-filled, so any C and Co
@@ -30,7 +58,8 @@
 //   loads when C and Co are multiples of 16 bytes and the pointers are
 //   16-byte aligned, element loads otherwise.
 // * bf16 runs on the tensor cores through nvcuda::wmma (16x16x16, fp32
-//   accumulate); fp32 runs as FMAs on the CUDA cores in full fp32.
+//   accumulate), fp32 as FMAs on the CUDA cores in full fp32 (wgmma has no
+//   fp32 input; TF32 would change the numbers).
 // * The global loads of the next slice are issued into registers before
 //   the current slice is multiplied out of shared memory.
 // * Weight gradient: the TPU kernel accumulates every grid step into one
@@ -595,6 +624,335 @@ conv_wgrad_f32(const float* __restrict__ x, const float* __restrict__ g,
       out[static_cast<int64_t>(ty * 4 + i) * copad + tx * kTn + j] = acc[i][j];
 }
 
+// ---------------------------------------------------------------------------
+// Weight gradient partials, bf16 on wgmma (see the header). Tiles are 64
+// pixel rows x 128 bytes in the 128-byte swizzle: 16-byte chunk q of row r
+// at r * 128 + (q ^ r % 8) * 16 from a 1024-byte aligned base. A stage
+// holds g's columns co0.. and co0 + 64.. (kWgG, two tiles), x's channels
+// c0.. at the pixels of the slice shifted by dy (kWgX1: the dx = 1 tile,
+// with one halo row on each side, the pixels before and after the slice),
+// and the dx = 0 and dx = 2 tiles built from it (kWgX0, kWgX2).
+
+constexpr int kWgSlice = 64;     // pixels per stage: 4 wgmma k-steps of 16
+constexpr int kWgStages = 4;
+constexpr int kWgAhead = 3;      // slices whose copies are in flight
+constexpr int kWgThreads = 384;  // three warpgroups, one per dx
+constexpr int kWgCols = 128;     // output channels per block: wgmma N
+constexpr int kWgTileBytes = kWgSlice * 128;
+constexpr int kWgG = 0;
+constexpr int kWgX1 = 2 * kWgTileBytes + 1024;  // halo row -1 at kWgX1 - 128
+constexpr int kWgX0 = kWgX1 + kWgTileBytes + 1024;  // room for halo row 64
+constexpr int kWgX2 = kWgX0 + kWgTileBytes;
+constexpr int kWgStageBytes = kWgX2 + kWgTileBytes;
+constexpr int kWgSmemBytes = kWgStages * kWgStageBytes + 1024;  // + align
+constexpr int kWgRows = 4;  // rows of a tile that one thread copies
+static_assert(kWgAhead + 1 <= kWgStages, "a stage for the slice in use");
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Byte offset of chunk q of row r (r may be -1 or 64: the halo rows) in a
+// swizzled tile.
+__device__ __forceinline__ uint32_t swizzled(int r, int q) {
+  return r * 128 + ((q ^ (r & 7)) << 4);
+}
+
+// 16 bytes from global to shared, or 16 zeros where !full; through L2 only
+// (every block reads its x and g once).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(full ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ uint4 ld_shared16(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_shared16(uint32_t addr, uint4 v) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Makes this thread's shared-memory writes (cp.async lands through the
+// generic proxy) visible to wgmma, which reads through the async proxy.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving accesses to the accumulators across the
+// asynchronous wgmma that writes them.
+__device__ __forceinline__ void fence_operands(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Shared-memory matrix descriptor of an MN-major operand in the 128-byte
+// swizzle: 64 elements of M (or N) per 128-byte row, one row per k; the
+// next 8 rows of k sit 1024 bytes on (stride byte offset), the next 64
+// columns of N one tile (kWgTileBytes) on (leading byte offset).
+__device__ __forceinline__ uint64_t desc_mn_sw128(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>(kWgTileBytes >> 4) << 16 |
+         static_cast<uint64_t>(1024 >> 4) << 32 |
+         static_cast<uint64_t>(1) << 62;
+}
+
+// d[64 x 128] += A[64 x 16] B[16 x 128], bf16 in, fp32 accumulators in the
+// wgmma fragment layout; A and B both MN-major (transpose bits set).
+__device__ __forceinline__ void wgmma_m64n128k16_tt(float (&d)[64],
+                                                    uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// blockIdx.x = (dy * co_blocks + output-channel block) * c_blocks +
+// channel block, blockIdx.y = split: the blocks that read the same pixels
+// are neighbours in launch order.
+__global__ void __launch_bounds__(kWgThreads, 1)
+conv_wgrad_wgmma(const bf16* __restrict__ x, const bf16* __restrict__ g,
+                 float* __restrict__ partial, int n, int h, int w, int c,
+                 int co, int cpad, int copad, int pixels_per_split) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t smem = (smem_u32(smem_raw) + 1023u) & ~1023u;
+
+  const int c_blocks = (c + kWgradRows - 1) / kWgradRows;
+  const int co_blocks = (co + kWgCols - 1) / kWgCols;
+  const int c0 = (blockIdx.x % c_blocks) * kWgradRows;
+  const int co0 = (blockIdx.x / c_blocks % co_blocks) * kWgCols;
+  const int dy = blockIdx.x / (c_blocks * co_blocks);
+  const int split = blockIdx.y;
+  const int m_total = n * h * w;
+  const int p_begin = split * pixels_per_split;
+  const int p_end = static_cast<int>(
+      min(static_cast<int64_t>(m_total),
+          static_cast<int64_t>(p_begin) + pixels_per_split));
+  const int steps =
+      p_end > p_begin ? (p_end - p_begin + kWgSlice - 1) / kWgSlice : 0;
+
+  // Copies: thread t of warpgroup 0 or 1 copies chunk q of rows r0 + 16 i
+  // (i < kWgRows) of g tile dx, and of warpgroup 2 the same chunks of the
+  // x tile (rows 0..63 of kWgX1); its threads t < 16 also copy halo row -1
+  // (t < 8) or 64. A row's pixel is tracked as (hh, ww) from slice to
+  // slice, so the loop divides nothing.
+  const int dx = threadIdx.x / 128;
+  const int t = threadIdx.x % 128;
+  const int q = t % 8;
+  const int r0 = t / 8;
+  const int halo = t < 8 ? -1 : kWgSlice;  // for t < 16 of warpgroup 2
+  const int64_t x_shift =
+      static_cast<int64_t>(dy - 1) * w * c + c0 + 8 * q;
+  const bool x_cols = c0 + 8 * q < c;
+  const int g_col = co0 + 64 * dx + 8 * q;
+  const bool g_cols = dx < 2 && g_col < co;
+  const int step_w = kWgSlice % w;
+  const int step_h = (kWgSlice / w) % h;
+  // (hh, ww) of pixel p, or of the last pixel of the image for p = -1.
+  auto coords = [&](int p, int& hh, int& ww) {
+    const int row = p < 0 ? h - 1 : p / w;
+    ww = p < 0 ? w - 1 : p - row * w;
+    hh = row % h;
+  };
+  auto advance = [&](int& hh, int& ww) {
+    ww += step_w;
+    hh += step_h;
+    if (ww >= w) {
+      ww -= w;
+      ++hh;
+    }
+    if (hh >= h) hh -= h;
+  };
+  int hh[kWgRows + 1], ww[kWgRows + 1];  // [kWgRows]: the halo row
+#pragma unroll
+  for (int i = 0; i < kWgRows; ++i)
+    coords(p_begin + r0 + 16 * i, hh[i], ww[i]);
+  coords(p_begin + halo, hh[kWgRows], ww[kWgRows]);
+
+  // x at pixel p shifted by dy (column dx = 1): zero on the border rows of
+  // the image and past its last pixel.
+  auto copy_x = [&](uint32_t dst, int p, int hh_p) {
+    const bool in = p >= 0 && p < m_total && x_cols &&
+                    static_cast<unsigned>(hh_p + dy - 1) <
+                        static_cast<unsigned>(h);
+    cp_async16(dst, in ? x + (static_cast<int64_t>(p) * c + x_shift) : x,
+               in);
+  };
+  auto issue = [&](int slice) {
+    const uint32_t stage = smem + (slice % kWgStages) * kWgStageBytes;
+    const int pb = p_begin + slice * kWgSlice;
+    if (dx < 2) {
+#pragma unroll
+      for (int i = 0; i < kWgRows; ++i) {
+        const int p = pb + r0 + 16 * i;
+        const bool in = p < p_end && g_cols;
+        cp_async16(stage + kWgG + dx * kWgTileBytes + swizzled(r0 + 16 * i, q),
+                   in ? g + (static_cast<int64_t>(p) * co + g_col) : g, in);
+      }
+      return;
+    }
+#pragma unroll
+    for (int i = 0; i < kWgRows; ++i) {
+      copy_x(stage + kWgX1 + swizzled(r0 + 16 * i, q), pb + r0 + 16 * i,
+             hh[i]);
+      advance(hh[i], ww[i]);
+    }
+    if (t < 16) {
+      copy_x(stage + kWgX1 + swizzled(halo, q), pb + halo, hh[kWgRows]);
+      advance(hh[kWgRows], ww[kWgRows]);
+    }
+  };
+
+  // The dx = 0 and dx = 2 tiles of a slice, from its kWgX1 rows r - 1 and
+  // r + 1: zero where pixel r is the first (dx = 0) or last (dx = 2) of
+  // its image row. Thread v builds chunk v % 8 of rows v / 8 + 48 i, and
+  // tracks the column bw of each.
+  constexpr int kBuildRows = (kWgSlice * 8 + kWgThreads - 1) / kWgThreads;
+  const int bq = threadIdx.x % 8;
+  const int br = threadIdx.x / 8;
+  int bw[kBuildRows];
+#pragma unroll
+  for (int i = 0; i < kBuildRows; ++i) bw[i] = (p_begin + br + 48 * i) % w;
+  auto build = [&](int slice) {
+    const uint32_t stage = smem + (slice % kWgStages) * kWgStageBytes;
+#pragma unroll
+    for (int i = 0; i < kBuildRows; ++i) {
+      const int r = br + 48 * i;
+      if (r < kWgSlice) {
+        const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+        const uint4 left = ld_shared16(stage + kWgX1 + swizzled(r - 1, bq));
+        const uint4 right = ld_shared16(stage + kWgX1 + swizzled(r + 1, bq));
+        st_shared16(stage + kWgX0 + swizzled(r, bq), bw[i] == 0 ? zero : left);
+        st_shared16(stage + kWgX2 + swizzled(r, bq),
+                    bw[i] == w - 1 ? zero : right);
+      }
+      bw[i] += step_w;
+      if (bw[i] >= w) bw[i] -= w;
+    }
+  };
+
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+
+  for (int s = 0; s < kWgAhead; ++s) {
+    if (s < steps) issue(s);
+    cp_async_commit();
+  }
+  if (steps > 0) {
+    cp_async_wait<kWgAhead - 1>();
+    __syncthreads();
+    build(0);
+  }
+  const uint32_t a_tile = dx == 0 ? kWgX0 : dx == 1 ? kWgX1 : kWgX2;
+  for (int s = 0; s < steps; ++s) {
+    // Slices s and s + 1 have landed for every thread, slice s's dx tiles
+    // are built, and every warpgroup is done with slice s - 1, whose stage
+    // the copies of slice s + kWgAhead overwrite.
+    cp_async_wait<kWgAhead - 2>();
+    fence_proxy_async();
+    __syncthreads();
+
+    const uint32_t stage = smem + (s % kWgStages) * kWgStageBytes;
+    fence_operands(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < kWgSlice / 16; ++k)
+      wgmma_m64n128k16_tt(acc, desc_mn_sw128(stage + a_tile + k * 2048),
+                          desc_mn_sw128(stage + kWgG + k * 2048));
+    wgmma_commit();
+    // While the tensor cores work: the copies of slice s + kWgAhead, and
+    // the dx tiles of slice s + 1.
+    if (s + kWgAhead < steps) issue(s + kWgAhead);
+    cp_async_commit();
+    if (s + 1 < steps) build(s + 1);
+    wgmma_wait<0>();
+    fence_operands(acc);
+  }
+
+  // Fragment layout: warp v of the warpgroup holds rows 16 v + lane / 4
+  // (+ 8); acc[4 j + 2 half + e] is column 8 j + 2 (lane % 4) + e. Rows
+  // past C and columns past Co are not stored (and never read).
+  const int lane = t % 32;
+  const int row0 = (t / 32) * 16 + lane / 4;
+  const int col0 = 2 * (lane % 4);
+  float* out = partial +
+               ((static_cast<int64_t>(split) * 9 + dy * 3 + dx) * cpad + c0) *
+                   copad + co0;
+#pragma unroll
+  for (int j = 0; j < kWgCols / 8; ++j) {
+    const int col = 8 * j + col0;
+    if (co0 + col >= co) continue;  // co is even: col + 1 < co too
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = row0 + 8 * half;
+      if (c0 + row < c)
+        *reinterpret_cast<float2*>(out + static_cast<int64_t>(row) * copad +
+                                   col) =
+            make_float2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+    }
+  }
+}
+
 // dW[tap, ch, col] = sum over s = 0..S-1, in that order, of the partials.
 __global__ void __launch_bounds__(kReduceThreads)
 wgrad_reduce(const float* __restrict__ partial, float* __restrict__ out,
@@ -661,29 +1019,38 @@ void launch_wgrad(const void* x, const void* g, float* partial, int n, int h,
         n, h, w, c, co, cpad, copad, pixels_per_split);
 }
 
-template <typename T>
+template <typename T, bool VEC>
 void dispatch_wgrad(const void* x, const void* g, float* partial, int n,
                     int h, int w, int c, int co, int cpad, int copad,
                     int splits, int pixels_per_split, cudaStream_t stream) {
-  constexpr int kChunk = Elems<T>::kChunk;
-  const bool vec =
-      c % kChunk == 0 && co % kChunk == 0 && aligned16(x) && aligned16(g);
-  if (tile_cols(co) == 64) {
-    if (vec)
-      launch_wgrad<T, 64, true>(x, g, partial, n, h, w, c, co, cpad, copad,
-                                splits, pixels_per_split, stream);
-    else
-      launch_wgrad<T, 64, false>(x, g, partial, n, h, w, c, co, cpad, copad,
-                                 splits, pixels_per_split, stream);
-  } else {
-    if (vec)
-      launch_wgrad<T, 128, true>(x, g, partial, n, h, w, c, co, cpad, copad,
-                                 splits, pixels_per_split, stream);
-    else
-      launch_wgrad<T, 128, false>(x, g, partial, n, h, w, c, co, cpad, copad,
-                                  splits, pixels_per_split, stream);
-  }
+  if (tile_cols(co) == 64)
+    launch_wgrad<T, 64, VEC>(x, g, partial, n, h, w, c, co, cpad, copad,
+                             splits, pixels_per_split, stream);
+  else
+    launch_wgrad<T, 128, VEC>(x, g, partial, n, h, w, c, co, cpad, copad,
+                              splits, pixels_per_split, stream);
 }
+
+cudaError_t launch_wgrad_wgmma(const void* x, const void* g, float* partial,
+                               int n, int h, int w, int c, int co, int cpad,
+                               int copad, int splits, int pixels_per_split,
+                               cudaStream_t stream) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      conv_wgrad_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kWgSmemBytes);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(3 * ((c + kWgradRows - 1) / kWgradRows) *
+                      ((co + kWgCols - 1) / kWgCols),
+                  splits);
+  conv_wgrad_wgmma<<<grid, kWgThreads, kWgSmemBytes, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(g), partial, n,
+      h, w, c, co, cpad, copad, pixels_per_split);
+  return cudaGetLastError();
+}
+
+// The weight-gradient kernels, by the `route` argument of conv3x3_wgrad
+// (the wrapper's WGRAD_ROUTES order).
+enum WgradRoute { kRouteF32 = 0, kRouteWmma = 1, kRouteWgmma = 2 };
 
 bool shape_ok(int n, int h, int w, int c, int co) {
   if (n <= 0 || h <= 0 || w <= 0 || c <= 0 || co <= 0) return false;
@@ -719,12 +1086,14 @@ long long conv3x3_wgrad_scratch(int c, int co, int splits) {
 }
 
 // out [9c, co] fp32 = im2col(x)^T @ g for x [n, h, w, c] and g [n, h, w, co]
-// of one dtype (fp32 or bf16), contiguous. Pixel range s of
+// of one dtype, contiguous, through the kernel that `route` names: 0 fp32
+// (CUDA cores), 1 bf16 on wmma (any c and co), 2 bf16 on wgmma (c and co
+// multiples of 8, x and g 16-byte aligned). Pixel range s of
 // [s * pixels_per_split, (s + 1) * pixels_per_split) goes to its own
 // partial in `partial` (conv3x3_wgrad_scratch floats); the partials are
 // then summed in order. Returns the cudaError_t of the launches.
 int conv3x3_wgrad(const void* x, const void* g, float* partial,
-                  long long partial_floats, float* out, int is_bf16, int n,
+                  long long partial_floats, float* out, int route, int n,
                   int h, int w, int c, int co, int splits,
                   int pixels_per_split, void* stream) {
   if (!shape_ok(n, h, w, c, co) || splits <= 0 || splits > 65535 ||
@@ -733,18 +1102,34 @@ int conv3x3_wgrad(const void* x, const void* g, float* partial,
           static_cast<int64_t>(n) * h * w ||
       static_cast<int64_t>(splits - 1) * pixels_per_split >=
           static_cast<int64_t>(n) * h * w ||
-      partial_floats < conv3x3_wgrad_scratch(c, co, splits))
+      partial_floats < conv3x3_wgrad_scratch(c, co, splits) ||
+      route < kRouteF32 || route > kRouteWgmma ||
+      (route == kRouteWgmma &&
+       (c % 8 != 0 || co % 8 != 0 || !aligned16(x) || !aligned16(g))))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int cpad = static_cast<int>(round_up(c, kWgradRows));
   const int copad = static_cast<int>(round_up(co, tile_cols(co)));
-  if (is_bf16)
-    dispatch_wgrad<bf16>(x, g, partial, n, h, w, c, co, cpad, copad, splits,
-                         pixels_per_split, s);
-  else
-    dispatch_wgrad<float>(x, g, partial, n, h, w, c, co, cpad, copad, splits,
-                          pixels_per_split, s);
-  cudaError_t e = cudaGetLastError();
+  cudaError_t e = cudaSuccess;
+  if (route == kRouteWgmma) {
+    e = launch_wgrad_wgmma(x, g, partial, n, h, w, c, co, cpad, copad,
+                           splits, pixels_per_split, s);
+  } else if (route == kRouteWmma) {
+    // The shapes that reach it have C or Co % 8 != 0 (or unaligned
+    // tensors): element loads.
+    dispatch_wgrad<bf16, false>(x, g, partial, n, h, w, c, co, cpad, copad,
+                                splits, pixels_per_split, s);
+    e = cudaGetLastError();
+  } else {
+    constexpr int kChunk = Elems<float>::kChunk;
+    if (c % kChunk == 0 && co % kChunk == 0 && aligned16(x) && aligned16(g))
+      dispatch_wgrad<float, true>(x, g, partial, n, h, w, c, co, cpad, copad,
+                                  splits, pixels_per_split, s);
+    else
+      dispatch_wgrad<float, false>(x, g, partial, n, h, w, c, co, cpad,
+                                   copad, splits, pixels_per_split, s);
+    e = cudaGetLastError();
+  }
   if (e != cudaSuccess) return static_cast<int>(e);
   const int total = 9 * c * co;
   int blocks = (total + kReduceThreads - 1) / kReduceThreads;

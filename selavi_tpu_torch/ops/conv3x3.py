@@ -10,7 +10,8 @@ bound.
     conv3x3(x, w)        -> [N, H, W, Co] in x's dtype (fp32 accumulation)
     conv3x3_dgrad(g, w)  -> [N, H, W, C] in g's dtype: the forward kernel
                             with w rotated and io-transposed
-    conv3x3_wgrad(x, g)  -> [3, 3, C, Co] fp32
+    conv3x3_wgrad(x, g)  -> [3, 3, C, Co] fp32; bf16 with C, Co % 8 == 0
+                            runs on the wgmma kernel (``wgrad_route``)
 
 Each wrapper launches its CUDA kernel for CUDA tensors and raises on
 anything the kernel does not take; it runs its ``*_plain`` version only
@@ -32,21 +33,35 @@ import torch.nn.functional as F
 from selavi_tpu_torch.ops import _build
 
 SOURCE = _build.CSRC / "conv3x3.cu"
-MAX_SPLITS = 256  # weight gradient: pixel ranges reduced in a fixed order
+# The weight gradient's kernels, in the order of the C function's `route`
+# codes: fp32 on the CUDA cores, bf16 on wmma (any C, Co), bf16 on wgmma
+# (C, Co % 8 == 0, 16-byte aligned tensors).
+WGRAD_ROUTES = ("fp32", "wmma", "wgmma")
+# Weight gradient: pixel ranges, each a multiple of SPLIT_ALIGN, whose
+# partials are reduced in a fixed order. fp32 and wmma: at most MAX_SPLITS
+# ranges of at least MIN_SPLIT_PIXELS. wgmma: enough ranges that its
+# 3 * (C blocks) * (Co blocks) * S blocks fill WAVE_BLOCKS, the H100's SM
+# count, once. Both depend on the shape alone, not on the card.
+MAX_SPLITS = 256
 MIN_SPLIT_PIXELS = 256
+WAVE_BLOCKS = 132
+WGMMA_ROWS, WGMMA_COLS = 64, 128  # channels of C and of Co per wgmma block
 SPLIT_ALIGN = 64  # pixels; a multiple of every kernel's slice depth
 INT32_LIMIT = 2 ** 31  # the kernels index pixels and channels in int32
 DTYPES = (torch.float32, torch.bfloat16)
 
-# Kernel launches made through each wrapper (plain calls not counted).
+# Kernel launches made through each wrapper (plain calls not counted), and
+# the weight gradient's launches by route.
 launches = {"conv3x3": 0, "conv3x3_dgrad": 0, "conv3x3_wgrad": 0}
+wgrad_routes = {route: 0 for route in WGRAD_ROUTES}
 
 _lib = None
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    for counts in (launches, wgrad_routes):
+        for name in counts:
+            counts[name] = 0
 
 
 def build_library() -> Path:
@@ -55,20 +70,25 @@ def build_library() -> Path:
     return _build.build_library(SOURCE)
 
 
+def load_library(path: Path) -> ctypes.CDLL:
+    """Load a build of ``csrc/conv3x3.cu`` and declare its C functions."""
+    lib = ctypes.CDLL(str(path))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.conv3x3_fwd.argtypes = [ptr, ptr, ptr] + [i32] * 6 + [ptr]
+    lib.conv3x3_fwd.restype = i32
+    lib.conv3x3_wgrad_scratch.argtypes = [i32, i32, i32]
+    lib.conv3x3_wgrad_scratch.restype = ctypes.c_longlong
+    lib.conv3x3_wgrad.argtypes = (
+        [ptr, ptr, ptr, ctypes.c_longlong, ptr] + [i32] * 8 + [ptr]
+    )
+    lib.conv3x3_wgrad.restype = i32
+    return lib
+
+
 def _library():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build_library()))
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.conv3x3_fwd.argtypes = [ptr, ptr, ptr] + [i32] * 6 + [ptr]
-        lib.conv3x3_fwd.restype = i32
-        lib.conv3x3_wgrad_scratch.argtypes = [i32, i32, i32]
-        lib.conv3x3_wgrad_scratch.restype = ctypes.c_longlong
-        lib.conv3x3_wgrad.argtypes = (
-            [ptr, ptr, ptr, ctypes.c_longlong, ptr] + [i32] * 8 + [ptr]
-        )
-        lib.conv3x3_wgrad.restype = i32
-        _lib = lib
+        _lib = load_library(build_library())
     return _lib
 
 
@@ -153,11 +173,27 @@ def _check_index_range(n: int, h: int, w: int, c: int, co: int) -> None:
             f"kernels' int32 indexing")
 
 
-def split_plan(pixels: int) -> tuple[int, int]:
-    """(splits, pixels per split) of the weight gradient's reduction over
-    ``pixels`` = N*H*W output pixels: at most MAX_SPLITS ranges of at
-    least MIN_SPLIT_PIXELS, each a multiple of SPLIT_ALIGN."""
-    per = max(MIN_SPLIT_PIXELS, -(-pixels // MAX_SPLITS))
+def wgrad_route(dtype: torch.dtype, c: int, co: int,
+                aligned: bool = True) -> str:
+    """The kernel that computes the weight gradient on the card: "wgmma"
+    for bf16 with C and Co multiples of 8 and 16-byte aligned tensors,
+    "wmma" for the other bf16 shapes, "fp32" for fp32."""
+    if dtype == torch.float32:
+        return "fp32"
+    if c % 8 == 0 and co % 8 == 0 and aligned:
+        return "wgmma"
+    return "wmma"
+
+
+def split_plan(route: str, pixels: int, c: int,
+               co: int) -> tuple[int, int]:
+    """(splits, pixels per split) of ``route``'s reduction over ``pixels``
+    = N*H*W output pixels of C -> Co channels (see WAVE_BLOCKS)."""
+    if route == "wgmma":
+        tiles = 3 * -(-c // WGMMA_ROWS) * -(-co // WGMMA_COLS)
+        per = -(-pixels // -(-WAVE_BLOCKS // tiles))
+    else:
+        per = max(MIN_SPLIT_PIXELS, -(-pixels // MAX_SPLITS))
     per = -(-per // SPLIT_ALIGN) * SPLIT_ALIGN
     return -(-pixels // per), per
 
@@ -213,7 +249,13 @@ def conv3x3_dgrad(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """dW of the conv: x [N, H, W, C], g [N, H, W, Co] of one dtype ->
-    [3, 3, C, Co] fp32."""
+    [3, 3, C, Co] fp32.
+
+    On the card the shape picks one of three hand kernels
+    (``wgrad_route``): bf16 with C and Co multiples of 8 (and 16-byte
+    aligned tensors) runs on wgmma, other bf16 shapes on wmma with element
+    loads, fp32 on the CUDA cores. None stands in for another: a failed
+    build or launch raises."""
     _check_activation("x", x)
     _check_activation("g", g)
     if g.shape[:3] != x.shape[:3]:
@@ -226,8 +268,10 @@ def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     n, h, wd, c = x.shape
     co = g.shape[3]
     _check_index_range(n, h, wd, c, co)
+    route = wgrad_route(x.dtype, c, co, aligned=(
+        x.data_ptr() % 16 == 0 and g.data_ptr() % 16 == 0))
     lib = _library()
-    splits, per = split_plan(n * h * wd)
+    splits, per = split_plan(route, n * h * wd, c, co)
     floats = lib.conv3x3_wgrad_scratch(c, co, splits)
     scratch = torch.empty(floats, dtype=torch.float32, device=x.device)
     out = torch.empty((3, 3, c, co), dtype=torch.float32, device=x.device)
@@ -235,8 +279,9 @@ def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.conv3x3_wgrad(x.data_ptr(), g.data_ptr(), scratch.data_ptr(),
                                floats, out.data_ptr(),
-                               int(x.dtype == torch.bfloat16), n, h, wd, c,
-                               co, splits, per, stream)
-    _raise_on(rc, "conv3x3 weight-gradient")
+                               WGRAD_ROUTES.index(route), n, h, wd, c, co,
+                               splits, per, stream)
+    _raise_on(rc, f"conv3x3 weight-gradient ({route})")
     launches["conv3x3_wgrad"] += 1
+    wgrad_routes[route] += 1
     return out

@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from selavi_tpu_torch.experiments import conv3x3 as probe
+from selavi_tpu_torch.experiments import wgrad_ablation
 from selavi_tpu_torch.ops import conv3x3 as ops
 
 torch.set_num_threads(1)
@@ -134,8 +135,59 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         ops.conv3x3(x.to("meta"), w.to("meta"))  # neither CPU nor CUDA
     with pytest.raises(ValueError):
         ops._check_index_range(2 ** 16, 2 ** 8, 2 ** 4, 64, 128)
-    assert ops.split_plan(480 * 56 * 56) == (256, 5888)
-    assert ops.split_plan(8 * 16) == (1, 256)
+    assert ops.split_plan("fp32", 480 * 56 * 56, 64, 128) == (256, 5888)
+    assert ops.split_plan("wmma", 8 * 16, 8, 16) == (1, 256)
+
+
+# (N, H, W, C, Co): the bench shape, both check shapes, a shape that fills
+# no wgmma tile (C = 72, Co = 136, 231 pixels), C = 3, one pixel, and the
+# most pixels the kernels take (2^30).
+PLAN_SHAPES = [probe.BENCH_SHAPE, *probe.CHECK_SHAPES, (3, 7, 11, 72, 136),
+               (2, 9, 13, 3, 136), (1, 1, 1, 8, 8), (4096, 512, 512, 8, 8)]
+
+
+@pytest.mark.parametrize("route", ops.WGRAD_ROUTES)
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=str)
+def test_split_plan_covers_every_pixel_once(route, shape):
+    n, h, wd, c, co = shape
+    pixels = n * h * wd
+    splits, per = ops.split_plan(route, pixels, c, co)
+    assert per % 64 == 0  # whole 64-pixel slices of the wgmma kernel
+    assert per % ops.SPLIT_ALIGN == 0
+    # ranges [s * per, (s + 1) * per) cut at N*H*W: each pixel in exactly one
+    assert (splits - 1) * per < pixels <= splits * per
+    assert 1 <= splits <= 65535  # a grid dimension of the launch
+    assert per * splits < ops.INT32_LIMIT
+    assert ops.split_plan(route, pixels, c, co) == (splits, per)
+    if route == "wgmma":
+        tiles = 3 * -(-c // 64) * -(-co // 128)
+        assert tiles * splits <= max(ops.WAVE_BLOCKS, tiles)
+
+
+def test_split_plan_fills_one_wave_at_the_bench_shape():
+    n, h, wd, c, co = probe.BENCH_SHAPE
+    assert ops.split_plan("wgmma", n * h * wd, c, co) == (44, 34240)
+    assert 3 * 44 == ops.WAVE_BLOCKS  # one block per SM of the H100
+    # fp32 keeps the plan of at most MAX_SPLITS ranges
+    assert ops.split_plan("fp32", n * h * wd, c, co) == (256, 5888)
+
+
+@pytest.mark.parametrize("dtype, shape, aligned, route", [
+    (torch.bfloat16, probe.BENCH_SHAPE, True, "wgmma"),
+    (torch.bfloat16, probe.CHECK_SHAPES[0], True, "wgmma"),
+    (torch.bfloat16, probe.CHECK_SHAPES[1], True, "wgmma"),
+    (torch.bfloat16, (3, 7, 11, 72, 136), True, "wgmma"),
+    (torch.bfloat16, (2, 3, 70, 16, 24), True, "wgmma"),
+    (torch.bfloat16, (1, 1, 1, 8, 8), True, "wgmma"),
+    (torch.bfloat16, (2, 9, 13, 3, 136), True, "wmma"),
+    (torch.bfloat16, (1, 4, 4, 16, 12), True, "wmma"),
+    (torch.bfloat16, probe.BENCH_SHAPE, False, "wmma"),
+    (torch.float32, probe.BENCH_SHAPE, True, "fp32"),
+    (torch.float32, (2, 9, 13, 3, 136), True, "fp32"),
+], ids=lambda v: str(v).removeprefix("torch."))
+def test_wgrad_route_picks_the_kernel_by_shape(dtype, shape, aligned, route):
+    *_, c, co = shape
+    assert ops.wgrad_route(dtype, c, co, aligned=aligned) == route
 
 
 def test_bound_at_the_bench_shape():
@@ -167,3 +219,9 @@ def test_probe_without_a_card_refuses_the_cpu(monkeypatch):
         probe.main(["--check"])
     with pytest.raises(RuntimeError, match="CUDA"):
         probe.bench("cpu")
+
+
+def test_wgrad_ablation_without_a_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        wgrad_ablation.main()
