@@ -16,8 +16,8 @@ just after each:
   the reference VGG-Sound recipe, which runs the fused SK kernel;
 - the conv probe: ``selavi_tpu_torch.experiments.conv3x3``'s ``check()``
   and ``bench()``, which run the conv3x3 forward, dgrad and wgrad kernels
-  and time them beside cuDNN at R(2+1)D layer1's shape (the bf16 wgrad
-  there on its wgmma kernel; the per-route counts show it).
+  and time them beside cuDNN at R(2+1)D layer1's shape (all three bf16
+  kernels there on their wgmma routes; the per-route counts show it).
 Then it times the SK kernel and the train step. Every phase raises on
 failure, so any failure exits non-zero. Standard output ends with a line
 ``{"kernels": [...]}`` and then the result line ``{"ok": true, "device":
@@ -63,18 +63,28 @@ OPS_PER_ELEMENT = 9  # add, max, sub, exp, add (row); add, max, exp, add (col)
 CONV_FP32_RTOL = 1e-5
 CONV_FP32_TERMS = 4096
 BF16_ULP = 2.0 ** -7
-# Beside the probe's shapes, each with the kernel that takes its bf16
-# weight gradient (the probe's own shapes take wgmma): channel counts that
-# no 16-byte load fits (the element-load paths), ragged pixel, channel and
-# output tiles; a shape that fills no wgmma tile in any dimension (C = 72:
-# two channel blocks, Co = 136: two output blocks, 231 pixels: not a
-# multiple of the 64-pixel slice); image rows longer than a slice (W = 70,
-# a slice stays within one row); and an image of one pixel.
+# Beside the probe's shapes, each with the kernels that take its bf16
+# forward, dgrad (the forward's routes at C and Co swapped) and weight
+# gradient (the probe's own shapes take wgmma for all three): channel
+# counts that no 16-byte load fits (the element-load paths); a shape that
+# fills no wgmma tile in any dimension (C = 72, Co = 136, 231 pixels: not a
+# multiple of the weight gradient's 64-pixel slice or the forward's
+# 128-pixel tile), whose forward and dgrad weights do not fit in shared
+# memory; image rows longer than a slice (W = 70); an image of one pixel;
+# images smaller than a forward tile (45 pixels: one tile spans all five
+# images, and every dy border falls inside it); image rows longer than a
+# tile (W = 130); C = 72, a multiple of 8 but not of the forward's 64-channel
+# slice (Co = 64: the weights fit); and two output-channel blocks of the
+# forward (Co = 136), whose dgrad weights do not fit.
 CONV_RAGGED_SHAPES = {
-    (2, 9, 13, 3, 136): "wmma",
-    (3, 7, 11, 72, 136): "wgmma",
-    (2, 3, 70, 16, 24): "wgmma",
-    (1, 1, 1, 8, 8): "wgmma",
+    (2, 9, 13, 3, 136): ("wmma", "wmma", "wmma"),
+    (3, 7, 11, 72, 136): ("wmma", "wmma", "wgmma"),
+    (2, 3, 70, 16, 24): ("wgmma", "wgmma", "wgmma"),
+    (1, 1, 1, 8, 8): ("wgmma", "wgmma", "wgmma"),
+    (5, 3, 3, 64, 128): ("wgmma", "wgmma", "wgmma"),
+    (2, 3, 130, 64, 128): ("wgmma", "wgmma", "wgmma"),
+    (2, 5, 7, 72, 64): ("wgmma", "wgmma", "wgmma"),
+    (1, 6, 10, 16, 136): ("wgmma", "wmma", "wgmma"),
 }
 # (name in the kernels line, the TPU kernel it replaces: file:line)
 CONV_KERNELS = (
@@ -253,15 +263,20 @@ def time_train(torch, trainer, report):
 
 def conv_kernels_vs_plain(torch, conv, device, report):
     """Phase 2c: the conv kernels against their plain versions on the card,
-    at the probe's check shapes, a ragged shape and the bench shape, in
-    fp32 and bf16; the weight gradient must be bit-identical on repeat and
-    go through the kernel its shape names."""
+    at the probe's check shapes, the ragged shapes and the bench shape, in
+    fp32 and bf16; every kernel must be bit-identical on repeat and go
+    through the route its shape names."""
     from selavi_tpu_torch.experiments.conv3x3 import BENCH_SHAPE, CHECK_SHAPES
 
     worst = {name: 0.0 for name, _ in CONV_KERNELS}
     gen = torch.Generator(device=device).manual_seed(0)
+    lib = conv._library()
     for shape in CHECK_SHAPES + tuple(CONV_RAGGED_SHAPES) + (BENCH_SHAPE,):
         n, h, wd, c, co = shape
+        for cin, cout in ((c, co), (co, c)):
+            check(lib.conv3x3_fwd_wgmma_smem(cin, cout)
+                  == conv.fwd_smem_bytes(cin, cout),
+                  f"the wgmma forward's shared memory at {cin} -> {cout}")
         x32 = torch.randn(n, h, wd, c, generator=gen, device=device)
         w32 = 0.1 * torch.randn(3, 3, c, co, generator=gen, device=device)
         g32 = torch.randn(n, h, wd, co, generator=gen, device=device)
@@ -274,9 +289,14 @@ def conv_kernels_vs_plain(torch, conv, device, report):
                 ("conv3x3_wgrad", conv.conv3x3_wgrad,
                  conv.conv3x3_wgrad_plain, (x, g)),
             )
-            route = "fp32" if dtype == torch.float32 else \
-                CONV_RAGGED_SHAPES.get(shape, "wgmma")
+            bf16_routes = dict(zip(
+                (name for name, _ in CONV_KERNELS),
+                CONV_RAGGED_SHAPES.get(shape, ("wgmma",) * 3)))
             for name, kernel, plain, args in cases:
+                route = "fp32" if dtype == torch.float32 else \
+                    bf16_routes[name]
+                routes = conv.wgrad_routes if name == "conv3x3_wgrad" else \
+                    conv.fwd_routes[name]
                 terms = n * h * wd if name == "conv3x3_wgrad" else \
                     9 * args[0].shape[3]
                 rtol = CONV_FP32_RTOL * math.sqrt(
@@ -285,11 +305,8 @@ def conv_kernels_vs_plain(torch, conv, device, report):
                     rtol += BF16_ULP
                 conv.reset_launches()
                 got = kernel(*args)
-                if name == "conv3x3_wgrad":
-                    check(conv.wgrad_routes == {
-                        r: int(r == route) for r in conv.WGRAD_ROUTES},
-                        f"{name} {shape} {dtype} ran on {route}: "
-                        f"{conv.wgrad_routes}")
+                check(routes == {r: int(r == route) for r in conv.ROUTES},
+                      f"{name} {shape} {dtype} ran on {route}: {routes}")
                 ref = plain(*args)
                 again = kernel(*args)
                 torch.cuda.synchronize()
@@ -297,16 +314,16 @@ def conv_kernels_vs_plain(torch, conv, device, report):
                 scale = float(ref.float().abs().max())
                 same = torch.equal(got, again)
                 print(f"conv kernel vs plain {name} {shape} "
-                      f"{str(dtype)[6:]}: max|diff| {diff:.3g} (scale "
-                      f"{scale:.3g}, tolerance {rtol:.3g} of scale), repeat "
+                      f"{str(dtype)[6:]} ({route}): max|diff| {diff:.3g} "
+                      f"(scale {scale:.3g}, tolerance {rtol:.3g} of scale), "
+                      f"repeat "
                       f"bit-identical {same}", flush=True)
                 check(got.dtype == ref.dtype and got.shape == ref.shape,
                       f"{name} {shape} {dtype}: dtype and shape")
                 check(bool(torch.isfinite(got).all()),
                       f"{name} {shape} {dtype}: finite")
                 check(diff <= rtol * scale, f"{name} {shape} {dtype}")
-                if name == "conv3x3_wgrad":
-                    check(same, f"{name} {shape} {dtype}: deterministic")
+                check(same, f"{name} {shape} {dtype}: deterministic")
                 worst[name] = max(worst[name], diff)
             del x, w, g, got, ref, again
         del x32, w32, g32
@@ -315,8 +332,8 @@ def conv_kernels_vs_plain(torch, conv, device, report):
 
 def conv_probe_path(torch, conv, device, report):
     """Phase 5: the conv probe's entry point (check, then bench); every
-    conv kernel count must move, and the bench shape's bf16 weight
-    gradient must go through the wgmma kernel."""
+    conv kernel count must move, and the bench shape's bf16 forward, dgrad
+    and weight gradient must go through their wgmma kernels."""
     from selavi_tpu_torch.experiments import conv3x3 as probe
 
     conv.reset_launches()
@@ -325,11 +342,25 @@ def conv_probe_path(torch, conv, device, report):
     torch.cuda.synchronize()
     launches = dict(conv.launches)
     routes = dict(conv.wgrad_routes)
-    print(f"conv probe path: launches {launches}, weight-gradient routes "
+    fwd_routes = {name: dict(r) for name, r in conv.fwd_routes.items()}
+    print(f"conv probe path: launches {launches}, forward routes "
+          f"{fwd_routes['conv3x3']}, dgrad routes "
+          f"{fwd_routes['conv3x3_dgrad']}, weight-gradient routes "
           f"{routes}", flush=True)
     for name, _ in CONV_KERNELS:
         check(launches[name] > 0, f"the probe path launched {name}")
     n, h, wd, c, co = probe.BENCH_SHAPE
+    # The probe's only bf16 forwards and dgrads are bench()'s, at the bench
+    # shape: all of them on wgmma (BN = 128 forward, BN = 64 dgrad).
+    for name, (cin, cout) in (("conv3x3", (c, co)),
+                              ("conv3x3_dgrad", (co, c))):
+        r = fwd_routes[name]
+        check(conv.fwd_route(torch.bfloat16, cin, cout) == "wgmma",
+              f"the bench shape's bf16 {name} routes to wgmma")
+        check(r["wgmma"] > 0 and r["wmma"] == 0 and r["fp32"] > 0,
+              f"the probe path's {name} routes: {r}")
+        check(sum(r.values()) == launches[name],
+              f"{name} routes add up to its launches")
     check(conv.wgrad_route(torch.bfloat16, c, co) == "wgmma",
           "the bench shape's bf16 weight gradient routes to wgmma")
     # C and Co fill whole tiles there: the split-K scratch is exactly the S
@@ -345,6 +376,7 @@ def conv_probe_path(torch, conv, device, report):
     check(sum(routes.values()) == launches["conv3x3_wgrad"],
           "weight-gradient routes add up to its launches")
     report["conv_launches"] = launches
+    report["conv_fwd_routes"] = fwd_routes
     report["conv_bench"] = bench
 
 

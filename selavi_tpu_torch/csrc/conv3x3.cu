@@ -5,7 +5,9 @@
 // Replaces the Pallas TPU kernels of experiments/pallas_conv3x3.py:
 // * conv3x3_pallas (pallas_call at :94, body _conv_kernel at :33), which
 //   conv3x3_dgrad_pallas (:194) reuses with the weights rotated and
-//   io-transposed: conv3x3_fwd below;
+//   io-transposed: conv3x3_fwd below, whose bf16 route for C, Co % 8 == 0
+//   with weights that fit in shared memory is the wgmma kernel
+//   conv_fwd_wgmma;
 // * conv3x3_wgrad_pallas (pallas_call at :162, body _wgrad_kernel at :126):
 //   conv3x3_wgrad below, whose bf16 route for C, Co % 8 == 0 is the
 //   wgmma kernel conv_wgrad_wgmma.
@@ -19,6 +21,39 @@
 // the H100 SXM's 989 TFLOP/s dense bf16, against 0.173 ms for the 578 MB
 // that the forward must move at 3.35 TB/s. In fp32 (FMAs on the CUDA
 // cores, no TF32) the same FLOP take 3.31 ms at 67 TFLOP/s.
+//
+// conv_fwd_wgmma<BN>, the bf16 forward (and data gradient) for C and Co
+// multiples of 8, 16-byte aligned tensors and 9 * ceil(C / 64) * 64 * BN
+// bf16 weights that fit in shared memory beside the ring (BN = 64 for
+// Co <= 64, else 128; the wrapper picks it by shape, other bf16 shapes take
+// conv_fwd_bf16, fp32 conv_fwd_f32). The bench shape's 578 MB (x 193 MB,
+// y 385 MB) take 0.173 ms, near the 0.2244 ms of its operations, so the
+// output stores have to overlap the products:
+// * Persistent blocks, one per SM. The block's BN columns of all 9 * C
+//   weight rows (144 KB at both bench shapes) stay in shared memory, read
+//   once per block (132 x 147 KB of L2 reads per call, where re-reading
+//   them per tile would take 1.7 GB).
+// * Its two warpgroups work apart, each on its own 64-pixel x BN tiles with
+//   its own ring, so one's epilogue runs while the other's products keep
+//   the tensor cores busy (they fall out of step by themselves: holding
+//   one a stage behind the other timed the same).
+// * A ring of 3 halo tiles per warpgroup, one per (dy, 64-channel slice):
+//   the tile's 64 pixels shifted by dy rows, plus one pixel on each side,
+//   one TMA copy of consecutive rows of x (zero outside the tensor). The
+//   three dx taps read it at row offsets 0, 1, 2: each thread loads its
+//   wgmma A operand into registers with ldmatrix (K-major, as a pixel's
+//   channels are), and a tap that falls off the image reads a zeroed row
+//   instead. So x is read 3 times from L2 (0.6 GB), not 9 times, and no dx
+//   tile is rebuilt in shared memory, as conv_wgrad_wgmma's are.
+// * wgmma.m64n{BN}k16 (A registers, B the resident weights), three groups
+//   of 4 in flight, one group per dx. A tile's first product starts its
+//   sums (accumulate = 0), and the epilogue reads the accumulators only
+//   once the products have drained: ptxas serializes every wgmma of a
+//   kernel in which other instructions write or read accumulators that
+//   wgmma has in flight.
+// * The epilogue writes the tile, bf16, by stmatrix into the staging tile
+//   and one TMA store per 64 channels: whole lines, clipped at M and Co.
+//   Per-lane stores (4 or 16 bytes) of the fragments reached only 1 TB/s.
 //
 // conv_wgrad_wgmma, the bf16 weight gradient for C and Co multiples of 8
 // with 16-byte aligned tensors (the wrapper picks it by shape; the other
@@ -71,6 +106,7 @@
 //
 // Plain C interface, loaded with ctypes by selavi_tpu_torch/ops/conv3x3.py.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -712,9 +748,10 @@ __device__ __forceinline__ void wgmma_wait() {
 
 // Keeps the compiler from moving accesses to the accumulators across the
 // asynchronous wgmma that writes them.
-__device__ __forceinline__ void fence_operands(float (&d)[64]) {
+template <int N>
+__device__ __forceinline__ void fence_operands(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // Shared-memory matrix descriptor of an MN-major operand in the 128-byte
@@ -953,6 +990,407 @@ conv_wgrad_wgmma(const bf16* __restrict__ x, const bf16* __restrict__ g,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Forward, bf16 on wgmma (see the header): conv_fwd_wgmma<BN>.
+//
+// Shared memory, from a 1024-byte aligned base:
+// * B: the block's BN columns of w2 for the whole reduction, resident for
+//   the kernel's life. Rows are k = tap * c_pad + channel (c_pad: C rounded
+//   up to 64, zero rows past C), in 64-row blocks of BN * 128 bytes; a block
+//   holds BN / 64 MN-major tiles of 64 k-rows x 64 columns in the 128-byte
+//   swizzle (desc_mn_sw128: the next 64 columns kWgTileBytes on, a k-step
+//   2 KB on), zero past Co.
+// * For each warpgroup, its output tile (64 x BN bf16 in BN / 64 boxes of
+//   64 x 64 in the 128-byte swizzle), which one TMA store per box takes to
+//   y, and a ring of kFwdStages halo tiles with an mbarrier each. Stage (dy,
+//   channel slice cs) of a tile at pixel m0 holds the flat pixel rows m0 - 1
+//   + (dy - 1) * W + j, j < kFwdHaloRows, channels cs * 64.. (128 bytes in
+//   the 128-byte swizzle), zero outside [0, M) and past C: one TMA copy of a
+//   box of consecutive rows of x.
+// * One 128-byte row of zeros.
+// Output row r of the tile takes tap (dy, dx) from halo row r + dx, or from
+// the zero row where that tap falls off the image (a border in h or w, or r
+// past M). Each thread loads its wgmma A fragments (registers, K-major)
+// with ldmatrix from those rows, so the three dx taps share one copy and
+// every border zero is an address.
+constexpr int kFwdTile = 64;  // output pixels per tile: one warpgroup's
+constexpr int kFwdThreads = 256;  // two warpgroups
+constexpr int kFwdStages = 3;  // halo stages in each warpgroup's ring
+constexpr int kFwdAhead = 2;  // stages whose copies are in flight
+constexpr int kFwdHaloRows = kFwdTile + 2;
+constexpr int kFwdStageBytes = kFwdHaloRows * 128;
+constexpr int kSmemLimit = 232448;  // dynamic shared memory a block may have
+static_assert(kFwdAhead + 1 <= kFwdStages, "a stage for the slice in use");
+
+// Dynamic shared memory of conv_fwd_wgmma for C -> Co channels.
+inline int64_t fwd_wgmma_smem(int c, int co) {
+  return 1024 + static_cast<int64_t>(9) * round_up(c, 64) * tile_cols(co) * 2 +
+         2 * tile_cols(co) * 128 + 2 * kFwdStages * kFwdStageBytes + 128 +
+         2 * kFwdStages * 8;
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// The same for registers that wgmma reads (its A fragments).
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// d[64 x BN] = A[64 x 16] B[16 x BN] (+ d if accumulate): A from registers
+// (the fragment of mma.m16n8k16 for each warp's 16 rows), B an MN-major
+// shared-memory tile (transpose bit set), bf16 in, fp32 accumulators.
+template <int BN>
+__device__ __forceinline__ void wgmma_rs(float (&d)[BN / 2],
+                                         const uint32_t (&a)[4], uint64_t b,
+                                         int accumulate);
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void stmatrix_x4(uint32_t addr, uint32_t r0,
+                                            uint32_t r1, uint32_t r2,
+                                            uint32_t r3) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n"
+      ::"r"(addr), "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+      : "memory");
+}
+
+// A box of the tensor that `map` describes, from shared memory at src, to
+// coordinates (x0, x1), innermost first; the copy engine leaves out what
+// falls past the tensor's bounds.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
+                                             uint32_t src, int x0, int x1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%1, %2}], "
+      "[%3];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(x0), "r"(x1), "r"(src)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Until this thread's bulk stores have read their shared memory.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// Until this thread's bulk stores are done.
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+// This thread's arrival on bar, and `bytes` more for its phase to await.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+// Until the phase of bar with this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT_%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT_%=;\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// A box of the tensor that `map` describes, at coordinates (x0, x1)
+// (innermost first; may lie partly outside the tensor, which reads as
+// zeros), into shared memory at dst; its bytes complete bar's phase.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int x0, int x1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x0), "r"(x1), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void named_bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Persistent: block b owns output-channel block b % co_blocks. Its two
+// warpgroups work apart, each on its own 64-pixel tiles (worker 2 (b /
+// co_blocks) + wg walks tiles worker, + 2 gridDim.x / co_blocks, ...) with
+// its own ring of halo stages and its own named barrier: while one drains
+// its products and stores a tile, the other's products keep the tensor
+// cores busy. A warpgroup's stages run on across its tiles (3 * c_pad / 64
+// per tile: dy, then channel slice), so the copies of its next tile's first
+// stages are in flight during a tile's last products and its epilogue. No
+// split: each output sums its taps in one fixed order, so repeats are
+// bit-identical.
+template <int BN>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+conv_fwd_wgmma(const __grid_constant__ CUtensorMap x_map,
+               const bf16* __restrict__ w2,
+               const __grid_constant__ CUtensorMap y_map, int n, int h,
+               int w, int c, int co) {
+  constexpr int kAcc = BN / 2;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t smem = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const int c_slices = (c + 63) / 64;
+  const int b_bytes = 9 * c_slices * BN * 128;
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int t128 = tid % 128;
+  const int lane = tid % 32;
+  // The warpgroup's output tile, 64 rows x BN in BN / 64 boxes of 64 x 64
+  // in the 128-byte swizzle, on its way to y.
+  const uint32_t staging = smem + b_bytes + wg * BN * 128;
+  const uint32_t ring =
+      smem + b_bytes + 2 * BN * 128 + wg * kFwdStages * kFwdStageBytes;
+  const uint32_t zero_row =
+      smem + b_bytes + 2 * BN * 128 + 2 * kFwdStages * kFwdStageBytes;
+  // One mbarrier for each stage of the warpgroup's ring: its halo tile has
+  // landed.
+  const uint32_t full = zero_row + 128 + wg * kFwdStages * 8;
+
+  const int m_total = n * h * w;
+  const int m_tiles = (m_total + kFwdTile - 1) / kFwdTile;
+  const int co_blocks = (co + BN - 1) / BN;
+  const int co0 = (blockIdx.x % co_blocks) * BN;
+  const int workers = 2 * (gridDim.x / co_blocks);
+  const int worker = 2 * (blockIdx.x / co_blocks) + wg;
+  const int per_tile = 3 * c_slices;
+  const int my_tiles =
+      worker < m_tiles ? (m_tiles - worker + workers - 1) / workers : 0;
+  const int total = my_tiles * per_tile;
+  auto tile_m0 = [&](int t) { return (worker + t * workers) * kFwdTile; };
+
+  // The resident weights, by all threads: chunk v is column chunk q of
+  // k-row r of 64-row block kb (tap, slice) in column tile a. They land,
+  // and are made visible to wgmma, before either warpgroup starts.
+  if (tid < 8) st_shared16(zero_row + tid * 16, make_uint4(0u, 0u, 0u, 0u));
+  if (tid == 0) {
+    for (int i = 0; i < 2 * kFwdStages; ++i)
+      mbar_init(zero_row + 128 + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int v = tid; v < b_bytes / 16; v += kFwdThreads) {
+    const int q = v % 8;
+    const int r = v / 8 % 64;
+    const int a = v / 512 % (BN / 64);
+    const int kb = v / (8 * BN);
+    const int tap = kb / c_slices;
+    const int ch = (kb - tap * c_slices) * 64 + r;
+    const int col = co0 + a * 64 + 8 * q;
+    const bool in = ch < c && col < co;
+    cp_async16(smem + kb * (BN * 128) + a * kWgTileBytes + swizzled(r, q),
+               in ? w2 + (static_cast<int64_t>(tap) * c + ch) * co + col : w2,
+               in);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  fence_proxy_async();
+  __syncthreads();
+
+  // Stage s of the warpgroup: the halo rows tile_m0 - 1 + (dy - 1) * W ..
+  // + 65, channels cs * 64 .., one TMA copy that one thread issues; rows
+  // outside [0, M) and channels past C read as zeros.
+  const bool producer = t128 == 0;
+  auto issue = [&](int s) {
+    const int t_idx = s / per_tile;
+    const int rem = s - t_idx * per_tile;
+    const int dy = rem / c_slices;
+    const int slot = s % kFwdStages;
+    mbar_expect_tx(full + 8 * slot, kFwdStageBytes);
+    tma_load_2d(ring + slot * kFwdStageBytes, &x_map, full + 8 * slot,
+                (rem - dy * c_slices) * 64, tile_m0(t_idx) - 1 + (dy - 1) * w);
+  };
+  if (producer)
+    for (int s = 0; s < kFwdAhead && s < total; ++s) issue(s);
+
+  // Lane l of warp v of the warpgroup gives ldmatrix the address of tile
+  // row 16 v + l % 8 + 8 (l / 8 % 2), chunk 2 k + l / 16 of k-step k: the
+  // four 8x8 matrices of the fragment.
+  const int my_row = (t128 / 32) * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int k_half = lane >> 4;
+  int ok_dy = 0, ok_dx = 0;  // bit d: tap dy (dx) = d stays on the image
+  uint32_t a[3][4][4];  // [dx][k-step][fragment register]
+
+  // The products of stage s into acc: three groups of 4, one per dx. Each
+  // tile starts its sums with accumulate = 0, so no instruction but wgmma
+  // writes the accumulators: ptxas serializes every wgmma otherwise.
+  auto products = [&](float (&acc)[kAcc], int s) {
+    // The whole warpgroup is done reading stage s - 1, whose slot the copy
+    // of s + kFwdAhead takes; then stage s has landed.
+    named_bar_sync(1 + wg, 128);
+    if (producer && s + kFwdAhead < total) issue(s + kFwdAhead);
+    mbar_wait(full + 8 * (s % kFwdStages), s / kFwdStages & 1);
+
+    const int rem = s % per_tile;
+    const int dy = rem / c_slices;
+    const int cs = rem - dy * c_slices;
+    if (rem == 0) {
+      const int p = tile_m0(s / per_tile) + my_row;
+      const int pw = p % w;
+      const int ph = p / w % h;
+      ok_dy = p < m_total ? (ph > 0) | 2 | (ph < h - 1) << 2 : 0;
+      ok_dx = (pw > 0) | 2 | (pw < w - 1) << 2;
+    }
+    const uint32_t stage = ring + (s % kFwdStages) * kFwdStageBytes;
+    const bool row_dy = (ok_dy >> dy) & 1;
+#pragma unroll
+    for (int dx = 0; dx < 3; ++dx) {
+      // The products that last read a[dx] (three groups back) are done.
+      wgmma_wait<2>();
+      fence_regs(a[dx][0]);
+      fence_regs(a[dx][1]);
+      fence_regs(a[dx][2]);
+      fence_regs(a[dx][3]);
+      // The copy engine swizzles by the absolute shared address: chunk q
+      // of the 128-byte row at address a lands at chunk q ^ (a / 128 % 8).
+      const bool ok = row_dy && ((ok_dx >> dx) & 1);
+      const uint32_t row = ok ? stage + (my_row + dx) * 128 : zero_row;
+      const int phase = ok ? (row >> 7) & 7 : 0;
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        ldmatrix_x4(a[dx][k], row + (((2 * k + k_half) ^ phase) << 4));
+      fence_operands(acc);
+      wgmma_fence();
+      const uint32_t b =
+          smem + ((dy * 3 + dx) * c_slices + cs) * (BN * 128);
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        wgmma_rs<BN>(acc, a[dx][k], desc_mn_sw128(b + k * 2048),
+                     rem > 0 || dx > 0 || k > 0);
+      wgmma_commit();
+    }
+  };
+
+  // Epilogue: stmatrix lane l of warp v addresses row 16 v + 8 (l / 8 % 2)
+  // + l % 8 of matrix l / 8, whose columns are chunk j + l / 16.
+  const int st_row = (t128 / 32) * 16 + ((lane >> 3) & 1) * 8 + (lane & 7);
+  const int st_chunk = lane >> 4;
+  float acc[kAcc];
+#pragma unroll
+  for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
+  for (int t = 0; t < my_tiles; ++t) {
+    for (int i = 0; i < per_tile; ++i) products(acc, t * per_tile + i);
+    // The epilogue reads the accumulators once the products have drained
+    // (reading them with products in flight serializes every wgmma too),
+    // and writes the staging tile once the previous tile's store has read
+    // it. Fragment layout: warp v holds rows 16 v + l / 4 (+ 8); acc[4 j +
+    // 2 half + e] is column 8 j + 2 (l % 4) + e.
+    wgmma_wait<0>();
+    if (t128 == 0) bulk_wait_read();
+    named_bar_sync(1 + wg, 128);
+    fence_operands(acc);
+#pragma unroll
+    for (int j = 0; j < BN / 8; j += 2) {
+      const int chunk = j + st_chunk;
+      stmatrix_x4(staging + (chunk / 8) * 8192 +
+                      swizzled(st_row, chunk % 8),
+                  pack_bf16x2(acc[4 * j], acc[4 * j + 1]),
+                  pack_bf16x2(acc[4 * j + 2], acc[4 * j + 3]),
+                  pack_bf16x2(acc[4 * j + 4], acc[4 * j + 5]),
+                  pack_bf16x2(acc[4 * j + 6], acc[4 * j + 7]));
+    }
+    fence_proxy_async();  // the staging tile, for the copy engine
+    named_bar_sync(1 + wg, 128);
+    if (t128 == 0) {
+#pragma unroll
+      for (int box = 0; box < BN / 64; ++box)
+        if (co0 + 64 * box < co)
+          tma_store_2d(&y_map, staging + box * 8192, co0 + 64 * box,
+                       tile_m0(t));
+      bulk_commit();
+    }
+  }
+  if (t128 == 0) bulk_wait();
+}
+
 // dW[tap, ch, col] = sum over s = 0..S-1, in that order, of the partials.
 __global__ void __launch_bounds__(kReduceThreads)
 wgrad_reduce(const float* __restrict__ partial, float* __restrict__ out,
@@ -1048,9 +1486,89 @@ cudaError_t launch_wgrad_wgmma(const void* x, const void* g, float* partial,
   return cudaGetLastError();
 }
 
-// The weight-gradient kernels, by the `route` argument of conv3x3_wgrad
-// (the wrapper's WGRAD_ROUTES order).
-enum WgradRoute { kRouteF32 = 0, kRouteWmma = 1, kRouteWgmma = 2 };
+// A tensor map of t [m_total, ch] bf16 for conv_fwd_wgmma's TMA copies:
+// boxes of box_rows pixels x 64 channels in the 128-byte swizzle (x: the
+// halo stages; y: the output tiles). cuTensorMapEncodeTiled is looked up
+// through the runtime (cudaGetDriverEntryPoint), so nothing more is linked.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+cudaError_t pixel_map(CUtensorMap* map, const void* t, int m_total, int ch,
+                      int box_rows) {
+  static EncodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+#endif
+    if (e != cudaSuccess) return e;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr)
+      return cudaErrorNotSupported;
+    encode = reinterpret_cast<EncodeTiled>(fn);
+  }
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(ch),
+                              static_cast<cuuint64_t>(m_total)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ch) * 2};
+  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t steps[2] = {1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(t), dims,
+      strides, box, steps,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int BN>
+cudaError_t launch_fwd_wgmma_bn(const void* x, const void* w2, void* y, int n,
+                                int h, int w, int c, int co,
+                                cudaStream_t stream) {
+  CUtensorMap x_map, y_map;
+  cudaError_t e = pixel_map(&x_map, x, n * h * w, c, kFwdHaloRows);
+  if (e == cudaSuccess) e = pixel_map(&y_map, y, n * h * w, co, kFwdTile);
+  if (e != cudaSuccess) return e;
+  const int64_t smem = fwd_wgmma_smem(c, co);
+  e = cudaFuncSetAttribute(
+      conv_fwd_wgmma<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  int device = 0, sms = 0;
+  e = cudaGetDevice(&device);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e != cudaSuccess) return e;
+  // One block per SM, each warpgroup walking its tiles; warpgroup 0 of
+  // every block gets a tile.
+  const int m_tiles = (n * h * w + kFwdTile - 1) / kFwdTile;
+  const int co_blocks = (co + BN - 1) / BN;
+  int per_co = sms / co_blocks;
+  if (per_co < 1) per_co = 1;
+  if (per_co > (m_tiles + 1) / 2) per_co = (m_tiles + 1) / 2;
+  conv_fwd_wgmma<BN><<<per_co * co_blocks, kFwdThreads, smem, stream>>>(
+      x_map, static_cast<const bf16*>(w2), y_map, n, h, w, c, co);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_fwd_wgmma(const void* x, const void* w2, void* y, int n,
+                             int h, int w, int c, int co,
+                             cudaStream_t stream) {
+  return tile_cols(co) == 64
+             ? launch_fwd_wgmma_bn<64>(x, w2, y, n, h, w, c, co, stream)
+             : launch_fwd_wgmma_bn<128>(x, w2, y, n, h, w, c, co, stream);
+}
+
+// The kernels of each function, by its `route` argument (the wrapper's
+// ROUTES order).
+enum Route { kRouteF32 = 0, kRouteWmma = 1, kRouteWgmma = 2 };
 
 bool shape_ok(int n, int h, int w, int c, int co) {
   if (n <= 0 || h <= 0 || w <= 0 || c <= 0 || co <= 0) return false;
@@ -1065,14 +1583,29 @@ bool shape_ok(int n, int h, int w, int c, int co) {
 
 extern "C" {
 
-// y [n, h, w, co] = conv3x3(x [n, h, w, c], w2 [9c, co]), all of one dtype:
-// fp32 (is_bf16 == 0) or bf16, contiguous. Returns the cudaError_t of the
-// launch (0 on success); nothing is synchronised.
-int conv3x3_fwd(const void* x, const void* w2, void* y, int is_bf16, int n,
+// Bytes of dynamic shared memory that the wgmma forward needs for C -> Co
+// channels (it takes the shape only if they fit kSmemLimit).
+long long conv3x3_fwd_wgmma_smem(int c, int co) {
+  return static_cast<long long>(fwd_wgmma_smem(c, co));
+}
+
+// y [n, h, w, co] = conv3x3(x [n, h, w, c], w2 [9c, co]), all of one dtype,
+// contiguous, through the kernel that `route` names: 0 fp32 (CUDA cores),
+// 1 bf16 on wmma (any c and co), 2 bf16 on wgmma (c and co multiples of 8,
+// x, w2 and y 16-byte aligned, conv3x3_fwd_wgmma_smem(c, co) within the
+// block's limit). Returns the cudaError_t of the launch (0 on success);
+// nothing is synchronised.
+int conv3x3_fwd(const void* x, const void* w2, void* y, int route, int n,
                 int h, int w, int c, int co, void* stream) {
-  if (!shape_ok(n, h, w, c, co)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!shape_ok(n, h, w, c, co) || route < kRouteF32 || route > kRouteWgmma ||
+      (route == kRouteWgmma &&
+       (c % 8 != 0 || co % 8 != 0 || !aligned16(x) || !aligned16(w2) ||
+        !aligned16(y) || fwd_wgmma_smem(c, co) > kSmemLimit)))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
+  if (route == kRouteWgmma)
+    return static_cast<int>(launch_fwd_wgmma(x, w2, y, n, h, w, c, co, s));
+  if (route == kRouteWmma)
     dispatch_fwd<bf16>(x, w2, y, n, h, w, c, co, s);
   else
     dispatch_fwd<float>(x, w2, y, n, h, w, c, co, s);

@@ -46,23 +46,33 @@ VARIANTS = {
 }
 
 
-def ptxas_report() -> str:
-    """``ptxas -v`` lines of conv_wgrad_wgmma, from a build with the
-    library's flags."""
+def ptxas_report(kernel: str = "conv_wgrad_wgmma") -> str:
+    """``ptxas -v`` lines of every entry of ``csrc/conv3x3.cu`` whose name
+    holds ``kernel`` (each instance of a template), from a build with the
+    library's flags; with them any warning that ptxas gave about it."""
     out = _build.BUILD_DIR / "ablation" / "ptxas_probe.so"
     out.parent.mkdir(parents=True, exist_ok=True)
     proc = subprocess.run(
         [_build.nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(out),
          str(conv.SOURCE)], capture_output=True, text=True, check=True)
     lines = (proc.stdout + proc.stderr).splitlines()
-    at = next(i for i, line in enumerate(lines)
-              if "Compiling entry" in line and "conv_wgrad_wgmma" in line)
-    return "\n".join(lines[at:at + 4])
+    starts = [i for i, line in enumerate(lines)
+              if "Compiling entry" in line and kernel in line]
+    if not starts:
+        raise RuntimeError(f"ptxas compiled no entry named like {kernel}")
+    # ptxas gives its performance warnings (such as wgmma serialized) as
+    # "info" lines that name the function.
+    warnings = [line for line in lines if kernel in line and (
+        "warning" in line.lower() or "Performance Loss" in line)]
+    return "\n".join(warnings + [line for i in starts
+                                  for line in lines[i:i + 4]])
 
 
-def build_variant(name: str):
+def build_variant(name: str, edits=None):
+    """``csrc/conv3x3.cu`` with the (text, replacement) ``edits`` of variant
+    ``name`` (by default this module's), built and loaded."""
     text = conv.SOURCE.read_text()
-    for old, new in VARIANTS[name]:
+    for old, new in VARIANTS[name] if edits is None else edits:
         if old not in text:
             raise RuntimeError(f"variant {name}: {old!r} is not in "
                                f"{conv.SOURCE.name}")

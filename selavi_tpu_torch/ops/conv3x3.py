@@ -7,8 +7,10 @@ with its layouts: activations NHWC ``[N, H, W, C]``, weights HWIO
 ``[3, 3, C, Co]``. See ``csrc/conv3x3.cu`` for the kernels' design and
 bound.
 
-    conv3x3(x, w)        -> [N, H, W, Co] in x's dtype (fp32 accumulation)
-    conv3x3_dgrad(g, w)  -> [N, H, W, C] in g's dtype: the forward kernel
+    conv3x3(x, w)        -> [N, H, W, Co] in x's dtype (fp32 accumulation);
+                            bf16 runs on the wgmma kernel where
+                            ``fwd_route`` says so
+    conv3x3_dgrad(g, w)  -> [N, H, W, C] in g's dtype: the forward kernels
                             with w rotated and io-transposed
     conv3x3_wgrad(x, g)  -> [3, 3, C, Co] fp32; bf16 with C, Co % 8 == 0
                             runs on the wgmma kernel (``wgrad_route``)
@@ -33,10 +35,23 @@ import torch.nn.functional as F
 from selavi_tpu_torch.ops import _build
 
 SOURCE = _build.CSRC / "conv3x3.cu"
-# The weight gradient's kernels, in the order of the C function's `route`
-# codes: fp32 on the CUDA cores, bf16 on wmma (any C, Co), bf16 on wgmma
-# (C, Co % 8 == 0, 16-byte aligned tensors).
-WGRAD_ROUTES = ("fp32", "wmma", "wgmma")
+# The kernels of the forward (which the dgrad reuses) and of the weight
+# gradient, in the order of the C functions' `route` codes: fp32 on the
+# CUDA cores, bf16 on wmma (any C, Co), bf16 on wgmma (C, Co % 8 == 0,
+# 16-byte aligned tensors; the forward's also needs its resident weights
+# and ring to fit FWD_SMEM_LIMIT).
+ROUTES = ("fp32", "wmma", "wgmma")
+# The wgmma forward's dynamic shared memory (as ``csrc/conv3x3.cu``'s
+# fwd_wgmma_smem): 1 KB to align, the block's weights (9 * C_pad * BN bf16,
+# C_pad = C rounded up to FWD_SLICE, BN = 64 for Co <= 64, else 128), for
+# each of its two warpgroups an output tile (64 x BN bf16) and a ring of
+# FWD_STAGES halo tiles (66 rows of 128 bytes) with an 8-byte mbarrier
+# each, and one zero row; at most FWD_SMEM_LIMIT, what a block of an H100
+# may have.
+FWD_SLICE = 64
+FWD_STAGES = 3
+FWD_STAGE_BYTES = 66 * 128
+FWD_SMEM_LIMIT = 232448
 # Weight gradient: pixel ranges, each a multiple of SPLIT_ALIGN, whose
 # partials are reduced in a fixed order. fp32 and wmma: at most MAX_SPLITS
 # ranges of at least MIN_SPLIT_PIXELS. wgmma: enough ranges that its
@@ -51,15 +66,18 @@ INT32_LIMIT = 2 ** 31  # the kernels index pixels and channels in int32
 DTYPES = (torch.float32, torch.bfloat16)
 
 # Kernel launches made through each wrapper (plain calls not counted), and
-# the weight gradient's launches by route.
+# the launches by route: of the forward and the dgrad each, and of the
+# weight gradient.
 launches = {"conv3x3": 0, "conv3x3_dgrad": 0, "conv3x3_wgrad": 0}
-wgrad_routes = {route: 0 for route in WGRAD_ROUTES}
+fwd_routes = {name: {route: 0 for route in ROUTES}
+              for name in ("conv3x3", "conv3x3_dgrad")}
+wgrad_routes = {route: 0 for route in ROUTES}
 
 _lib = None
 
 
 def reset_launches() -> None:
-    for counts in (launches, wgrad_routes):
+    for counts in (launches, wgrad_routes, *fwd_routes.values()):
         for name in counts:
             counts[name] = 0
 
@@ -76,6 +94,8 @@ def load_library(path: Path) -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.conv3x3_fwd.argtypes = [ptr, ptr, ptr] + [i32] * 6 + [ptr]
     lib.conv3x3_fwd.restype = i32
+    lib.conv3x3_fwd_wgmma_smem.argtypes = [i32, i32]
+    lib.conv3x3_fwd_wgmma_smem.restype = ctypes.c_longlong
     lib.conv3x3_wgrad_scratch.argtypes = [i32, i32, i32]
     lib.conv3x3_wgrad_scratch.restype = ctypes.c_longlong
     lib.conv3x3_wgrad.argtypes = (
@@ -173,6 +193,29 @@ def _check_index_range(n: int, h: int, w: int, c: int, co: int) -> None:
             f"kernels' int32 indexing")
 
 
+def fwd_smem_bytes(c: int, co: int) -> int:
+    """Dynamic shared memory of the wgmma forward for C -> Co channels."""
+    bn = 64 if co <= 64 else 128
+    c_pad = -(-c // FWD_SLICE) * FWD_SLICE
+    return (1024 + 9 * c_pad * bn * 2 + 2 * 64 * bn * 2
+            + 2 * FWD_STAGES * (FWD_STAGE_BYTES + 8) + 128)
+
+
+def fwd_route(dtype: torch.dtype, c: int, co: int,
+              aligned: bool = True) -> str:
+    """The kernel that computes the forward of C -> Co channels on the
+    card (the dgrad asks with its rotated shape, C and Co swapped): "wgmma"
+    for bf16 with C and Co multiples of 8, 16-byte aligned tensors and
+    resident weights plus ring within FWD_SMEM_LIMIT; "wmma" for the other
+    bf16 shapes; "fp32" for fp32."""
+    if dtype == torch.float32:
+        return "fp32"
+    if (c % 8 == 0 and co % 8 == 0 and aligned
+            and fwd_smem_bytes(c, co) <= FWD_SMEM_LIMIT):
+        return "wgmma"
+    return "wmma"
+
+
 def wgrad_route(dtype: torch.dtype, c: int, co: int,
                 aligned: bool = True) -> str:
     """The kernel that computes the weight gradient on the card: "wgmma"
@@ -206,33 +249,40 @@ def _raise_on(rc: int, what: str) -> None:
         raise RuntimeError(f"{what} kernel launch failed: cudaError_t {rc}")
 
 
-def _forward_kernel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """The forward kernel on x [N, H, W, C] and w [3, 3, C, Co]."""
+def _forward_kernel(name: str, x: torch.Tensor,
+                    w: torch.Tensor) -> torch.Tensor:
+    """The forward kernel that ``fwd_route`` names, on x [N, H, W, C] and
+    w [3, 3, C, Co]; counted under ``name``."""
     n, h, wd, c = x.shape
     co = w.shape[3]
     _check_index_range(n, h, wd, c, co)
     lib = _library()
     w2 = w.reshape(9 * c, co).to(x.dtype).contiguous()
     y = torch.empty((n, h, wd, co), dtype=x.dtype, device=x.device)
+    route = fwd_route(x.dtype, c, co, aligned=all(
+        t.data_ptr() % 16 == 0 for t in (x, w2, y)))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.conv3x3_fwd(x.data_ptr(), w2.data_ptr(), y.data_ptr(),
-                             int(x.dtype == torch.bfloat16), n, h, wd, c, co,
-                             stream)
-    _raise_on(rc, "conv3x3 forward")
+                             ROUTES.index(route), n, h, wd, c, co, stream)
+    _raise_on(rc, f"{name} ({route})")
+    launches[name] += 1
+    fwd_routes[name][route] += 1
     return y
 
 
 def conv3x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """3x3 stride-1 'same' conv: x [N, H, W, C], w [3, 3, C, Co] ->
-    [N, H, W, Co] in x's dtype."""
+    [N, H, W, Co] in x's dtype.
+
+    On the card the shape picks one of three hand kernels (``fwd_route``):
+    bf16 on wgmma where it fits, other bf16 on wmma, fp32 on the CUDA
+    cores. None stands in for another: a failed build or launch raises."""
     _check_activation("x", x)
     _check_weight(w, 2, x.shape[3])
     if _device_of(("x", x), ("w", w)).type == "cpu":
         return conv3x3_plain(x, w)
-    y = _forward_kernel(x, w)
-    launches["conv3x3"] += 1
-    return y
+    return _forward_kernel("conv3x3", x, w)
 
 
 def conv3x3_dgrad(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -242,9 +292,7 @@ def conv3x3_dgrad(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     _check_weight(w, 3, g.shape[3])
     if _device_of(("g", g), ("w", w)).type == "cpu":
         return conv3x3_dgrad_plain(g, w)
-    dx = _forward_kernel(g, _rotate(w))
-    launches["conv3x3_dgrad"] += 1
-    return dx
+    return _forward_kernel("conv3x3_dgrad", g, _rotate(w))
 
 
 def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -279,7 +327,7 @@ def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.conv3x3_wgrad(x.data_ptr(), g.data_ptr(), scratch.data_ptr(),
                                floats, out.data_ptr(),
-                               WGRAD_ROUTES.index(route), n, h, wd, c, co,
+                               ROUTES.index(route), n, h, wd, c, co,
                                splits, per, stream)
     _raise_on(rc, f"conv3x3 weight-gradient ({route})")
     launches["conv3x3_wgrad"] += 1

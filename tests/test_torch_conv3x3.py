@@ -20,7 +20,7 @@ import pytest
 import torch
 
 from selavi_tpu_torch.experiments import conv3x3 as probe
-from selavi_tpu_torch.experiments import wgrad_ablation
+from selavi_tpu_torch.experiments import fwd_ablation, wgrad_ablation
 from selavi_tpu_torch.ops import conv3x3 as ops
 
 torch.set_num_threads(1)
@@ -146,7 +146,7 @@ PLAN_SHAPES = [probe.BENCH_SHAPE, *probe.CHECK_SHAPES, (3, 7, 11, 72, 136),
                (2, 9, 13, 3, 136), (1, 1, 1, 8, 8), (4096, 512, 512, 8, 8)]
 
 
-@pytest.mark.parametrize("route", ops.WGRAD_ROUTES)
+@pytest.mark.parametrize("route", ops.ROUTES)
 @pytest.mark.parametrize("shape", PLAN_SHAPES, ids=str)
 def test_split_plan_covers_every_pixel_once(route, shape):
     n, h, wd, c, co = shape
@@ -225,3 +225,125 @@ def test_wgrad_ablation_without_a_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError):
         wgrad_ablation.main()
+
+
+@pytest.mark.parametrize("dtype, c, co, aligned, route", [
+    (torch.bfloat16, 64, 128, True, "wgmma"),  # the bench shape's forward
+    (torch.bfloat16, 128, 64, True, "wgmma"),  # its dgrad (C, Co swapped)
+    (torch.bfloat16, 8, 8, True, "wgmma"),
+    (torch.bfloat16, 72, 64, True, "wgmma"),  # C_pad 128, BN 64: fits
+    (torch.bfloat16, 16, 136, True, "wgmma"),  # two output-channel blocks
+    (torch.bfloat16, 72, 136, True, "wmma"),  # C_pad 128, BN 128: too big
+    (torch.bfloat16, 136, 16, True, "wmma"),  # C_pad 192: too big
+    (torch.bfloat16, 256, 256, True, "wmma"),  # too big
+    (torch.bfloat16, 3, 136, True, "wmma"),  # C % 8 != 0
+    (torch.bfloat16, 16, 12, True, "wmma"),  # Co % 8 != 0
+    (torch.bfloat16, 64, 128, False, "wmma"),  # unaligned tensors
+    (torch.float32, 64, 128, True, "fp32"),
+    (torch.float32, 3, 136, True, "fp32"),
+], ids=lambda v: str(v).removeprefix("torch."))
+def test_fwd_route_picks_the_kernel_by_shape(dtype, c, co, aligned, route):
+    assert ops.fwd_route(dtype, c, co, aligned=aligned) == route
+
+
+def test_fwd_shared_memory_plan_at_the_bench_shapes():
+    # 1 KB to align + weights 9 * 64 * 128 * 2 + two 64 x 128 output tiles +
+    # two rings of 3 stages of 66 rows of 128 bytes and an mbarrier each +
+    # a zero row: within the 232,448 bytes a block may have.
+    n, h, wd, c, co = probe.BENCH_SHAPE
+    fwd = ops.fwd_smem_bytes(c, co)
+    dgrad = ops.fwd_smem_bytes(co, c)
+    assert fwd == 1024 + 147456 + 32768 + 6 * (8448 + 8) + 128 == 232112
+    assert dgrad == 1024 + 147456 + 16384 + 6 * (8448 + 8) + 128 == 215728
+    assert max(fwd, dgrad) <= ops.FWD_SMEM_LIMIT
+    assert ops.fwd_smem_bytes(256, 256) > ops.FWD_SMEM_LIMIT
+
+
+def _load_chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", ROOT / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+chip_smoke = _load_chip_smoke()
+
+
+@pytest.mark.parametrize("shape", list(chip_smoke.CONV_RAGGED_SHAPES),
+                         ids=str)
+def test_chip_smoke_names_the_routes_the_wrappers_take(shape):
+    """chip_smoke.py fails on the card if a call goes another way than its
+    table says; the table must agree with the route functions."""
+    *_, c, co = shape
+    fwd, dgrad, wgrad = chip_smoke.CONV_RAGGED_SHAPES[shape]
+    assert ops.fwd_route(torch.bfloat16, c, co) == fwd
+    assert ops.fwd_route(torch.bfloat16, co, c) == dgrad
+    assert ops.wgrad_route(torch.bfloat16, c, co) == wgrad
+
+
+def test_reset_launches_clears_every_route_count():
+    ops.fwd_routes["conv3x3"]["wgmma"] = 3
+    ops.fwd_routes["conv3x3_dgrad"]["wmma"] = 2
+    ops.wgrad_routes["fp32"] = 1
+    ops.launches["conv3x3"] = 4
+    ops.reset_launches()
+    assert all(v == 0 for v in ops.launches.values())
+    assert all(v == 0 for v in ops.wgrad_routes.values())
+    assert all(v == 0 for r in ops.fwd_routes.values() for v in r.values())
+    # CPU tensors take the plain version and count nothing
+    x, w, g = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _inputs(1, 3, 4, 8, 8))
+    ops.conv3x3(x, w)
+    ops.conv3x3_dgrad(g, w)
+    assert all(v == 0 for r in ops.fwd_routes.values() for v in r.values())
+
+
+def _halo_model(x, w):
+    """The wgmma forward's data path in numpy: 64-pixel tiles; for each tap
+    row dy a halo of 66 consecutive flat pixel rows (zero outside [0, M),
+    channels padded to a multiple of 64); output row r takes tap (dy, dx)
+    from halo row r + dx, or zeros where the tap leaves the image."""
+    n, h, wd, c = x.shape
+    co = w.shape[3]
+    m = n * h * wd
+    c_pad = -(-c // 64) * 64
+    xf = np.zeros((m, c_pad), np.float64)
+    xf[:, :c] = x.reshape(m, c)
+    wp = np.zeros((3, 3, c_pad, co), np.float64)
+    wp[:, :, :c] = w
+    y = np.zeros((m, co), np.float64)
+    rows = np.arange(64)
+    for m0 in range(0, m, 64):
+        p = m0 + rows
+        ph, pw = p // wd % h, p % wd
+        tile = np.zeros((64, co))
+        for dy in range(3):
+            src = m0 - 1 + (dy - 1) * wd + np.arange(66)
+            inside = (src >= 0) & (src < m)
+            halo = np.where(inside[:, None], xf[np.clip(src, 0, m - 1)], 0.0)
+            for dx in range(3):
+                ok = ((p < m) & (ph + dy - 1 >= 0) & (ph + dy - 1 < h)
+                      & (pw + dx - 1 >= 0) & (pw + dx - 1 < wd))
+                tile += np.where(ok[:, None], halo[rows + dx], 0.0) @ wp[dy, dx]
+        keep = p < m
+        y[p[keep]] = tile[keep]
+    return y.reshape(n, h, wd, co)
+
+
+# (N, H, W, C, Co): images smaller than a tile (one tile spans several,
+# every dy border inside it), rows longer than a tile (W = 70), C = 72 (two
+# channel slices, the second ragged), one pixel, pixels not a multiple of 64
+@pytest.mark.parametrize("shape", [(5, 3, 3, 8, 16), (1, 2, 70, 8, 8),
+                                   (2, 5, 7, 72, 16), (1, 1, 1, 8, 8),
+                                   (3, 7, 11, 16, 8)], ids=str)
+def test_halo_model_of_the_wgmma_forward_is_the_conv(shape):
+    x, w, _ = _inputs(*shape)
+    ref = ops.conv3x3_plain(torch.from_numpy(x), torch.from_numpy(w))
+    assert _rel_err(_halo_model(x, w), ref.numpy()) < RTOL
+
+
+def test_fwd_ablation_without_a_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        fwd_ablation.main()
