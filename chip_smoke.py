@@ -74,8 +74,9 @@ BF16_ULP = 2.0 ** -7
 # images smaller than a forward tile (45 pixels: one tile spans all five
 # images, and every dy border falls inside it); image rows longer than a
 # tile (W = 130); C = 72, a multiple of 8 but not of the forward's 64-channel
-# slice (Co = 64: the weights fit); and two output-channel blocks of the
-# forward (Co = 136), whose dgrad weights do not fit.
+# slice (Co = 64: the weights fit); two output-channel blocks of the
+# forward (Co = 136), whose dgrad weights do not fit; and C = 3, Co = 5, no
+# multiple of 4, so the fp32 kernels copy both operands by 4 bytes.
 CONV_RAGGED_SHAPES = {
     (2, 9, 13, 3, 136): ("wmma", "wmma", "wmma"),
     (3, 7, 11, 72, 136): ("wmma", "wmma", "wgmma"),
@@ -85,6 +86,7 @@ CONV_RAGGED_SHAPES = {
     (2, 3, 130, 64, 128): ("wgmma", "wgmma", "wgmma"),
     (2, 5, 7, 72, 64): ("wgmma", "wgmma", "wgmma"),
     (1, 6, 10, 16, 136): ("wgmma", "wmma", "wgmma"),
+    (1, 5, 7, 3, 5): ("wmma", "wmma", "wmma"),
 }
 # (name in the kernels line, the TPU kernel it replaces: file:line)
 CONV_KERNELS = (
@@ -277,6 +279,11 @@ def conv_kernels_vs_plain(torch, conv, device, report):
             check(lib.conv3x3_fwd_wgmma_smem(cin, cout)
                   == conv.fwd_smem_bytes(cin, cout),
                   f"the wgmma forward's shared memory at {cin} -> {cout}")
+            check(lib.conv3x3_f32_smem(0, cout)
+                  == conv.f32_smem_bytes("forward", cout),
+                  f"the fp32 forward's shared memory at {cin} -> {cout}")
+        check(lib.conv3x3_f32_smem(1, co) == conv.f32_smem_bytes("wgrad"),
+              "the fp32 weight gradient's shared memory")
         x32 = torch.randn(n, h, wd, c, generator=gen, device=device)
         w32 = 0.1 * torch.randn(3, 3, c, co, generator=gen, device=device)
         g32 = torch.randn(n, h, wd, co, generator=gen, device=device)
@@ -330,7 +337,7 @@ def conv_kernels_vs_plain(torch, conv, device, report):
     report["conv_max_abs_err"] = worst
 
 
-def conv_probe_path(torch, conv, device, report):
+def conv_probe_path(torch, conv, measure, device, report):
     """Phase 5: the conv probe's entry point (check, then bench); every
     conv kernel count must move, and the bench shape's bf16 forward, dgrad
     and weight gradient must go through their wgmma kernels."""
@@ -340,6 +347,9 @@ def conv_probe_path(torch, conv, device, report):
     probe.check(device)
     bench = probe.bench(device)
     torch.cuda.synchronize()
+    # The fp32 bound assumes the boost clock: the clock the card ran at.
+    print(f"SM clock after the bench (clocks.sm, clocks.max.sm): "
+          f"{measure.sm_clocks()}", flush=True)
     launches = dict(conv.launches)
     routes = dict(conv.wgrad_routes)
     fwd_routes = {name: dict(r) for name, r in conv.fwd_routes.items()}
@@ -415,7 +425,7 @@ def main() -> int:
     solver_fused_vs_plain(torch, device, report)
     conv_kernels_vs_plain(torch, conv, device, report)
     trainer = main_path(torch, sf, device, report)
-    conv_probe_path(torch, conv, device, report)
+    conv_probe_path(torch, conv, measure, device, report)
 
     # Phase 4a: the SK kernel at paper scale, against its byte bound.
     bw = measure.memory_bandwidth(device)

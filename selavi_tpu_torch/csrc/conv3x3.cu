@@ -20,13 +20,58 @@
 // in bf16, each kernel does 2*1505280*576*128 = 2.22e11 FLOP: 0.2244 ms at
 // the H100 SXM's 989 TFLOP/s dense bf16, against 0.173 ms for the 578 MB
 // that the forward must move at 3.35 TB/s. In fp32 (FMAs on the CUDA
-// cores, no TF32) the same FLOP take 3.31 ms at 67 TFLOP/s.
+// cores, no TF32) the same FLOP take 3.31 ms at 67 TFLOP/s, against 0.345
+// ms for the forward's 1.16 GB (each input read once, the output written
+// once): every fp32 kernel is bound by its FMA issue rate.
+//
+// conv_fwd_f32<Tile>, conv_fwd_f32_halo<Tile> and conv_wgrad_f32, the fp32
+// kernels (every fp32 shape). The FMAs bound them, so the design keeps everything else off the
+// FMA pipe's way:
+// * One SIMT main loop: 256 threads, each with a block of outputs held in
+//   registers (16 x 8 or 8 x 8 in the forward, 12 x 8 in the weight
+//   gradient), so each 16-byte shared-memory load feeds 16 to 32 FMAs. A
+//   warp is 4 x 8 threads, each holding float4 groups of rows and columns
+//   half a tile (or a quarter) apart, so its loads of B read 128
+//   contiguous bytes and its loads of A 64: no bank conflicts. One block a
+//   SM, with no register cap: capped for two, ptxas spilled and every loop
+//   ran slower.
+// * Slices 32 values deep in a ring of cp.async stages in dynamic shared
+//   memory that zero-fill at the borders and ragged edges, one
+//   __syncthreads per slice, no register staging.
+// * The forward's A tile is k-major ([32 k][pixels]), so the loop reads A
+//   as it reads B, along the pixels; each float of x lands in place by a
+//   4-byte .ca copy (a warp copies 4 pixels x 8 channels, on distinct
+//   banks). Kept pixel-major, as 16-byte copies land it, A needed a float4
+//   along k for each of the 8 pixels: 32 more registers, and the FMA loop
+//   alone ran slower. B comes by 16-byte .cg copies (4-byte where C or Co %
+//   4 != 0 or a tensor is not 16-byte aligned). For Co > 64 (the forward at
+//   the bench shape) a slice is one tap and 32 channels, the tile 256
+//   pixels x 128 channels, 16 x 8 outputs a thread (half the weight copies
+//   of a 128 x 128 tile at 8 x 8). For Co <= 64 (its dgrad, which reads
+//   128 channels of g) the tile is 256 x 64, 8 x 8 a thread, and a slice
+//   is one tap row dy and 32 channels: the A tile is the halo of the
+//   block's pixels (one more on each side) shifted by dy, and each dx a row
+//   offset into it, as in the bf16 forward, so g is read 3 times, not 9. A
+//   float4 and a float2 of a halo row give a thread's four pixels their
+//   three dx taps; a tap where the pixel starts (dx = 0) or ends (dx = 2)
+//   its image row takes a zero by a select (one per pixel group and k when
+//   W % 4 == 0, four otherwise): conv_fwd_f32_halo. Each design measured
+//   slower on the other tile: the halo's FMA loop runs slower than the
+//   taps' and gains back only where the copies are large.
+// * The weight gradient's block owns a tap row dy and all three dx (as
+//   conv_wgrad_wgmma's does): its x tile is the slice's 32 pixels plus one
+//   on each side, shifted by dy, and each dx is a row offset into it, the
+//   zero row where the pixel starts (dx = 0) or ends (dx = 2) its image
+//   row. So x and g are read 3 times, not 9. Its slice loop is unrolled 8
+//   times (fully, it ran 4% slower). Its splits fill the 132 SMs once, as
+//   the wgmma kernel's do (split_plan), summed in a fixed order by
+//   wgrad_reduce.
 //
 // conv_fwd_wgmma<BN>, the bf16 forward (and data gradient) for C and Co
 // multiples of 8, 16-byte aligned tensors and 9 * ceil(C / 64) * 64 * BN
 // bf16 weights that fit in shared memory beside the ring (BN = 64 for
 // Co <= 64, else 128; the wrapper picks it by shape, other bf16 shapes take
-// conv_fwd_bf16, fp32 conv_fwd_f32). The bench shape's 578 MB (x 193 MB,
+// conv_fwd_bf16). The bench shape's 578 MB (x 193 MB,
 // y 385 MB) take 0.173 ms, near the 0.2244 ms of its operations, so the
 // output stores have to overlap the products:
 // * Persistent blocks, one per SM. The block's BN columns of all 9 * C
@@ -57,7 +102,7 @@
 //
 // conv_wgrad_wgmma, the bf16 weight gradient for C and Co multiples of 8
 // with 16-byte aligned tensors (the wrapper picks it by shape; the other
-// bf16 shapes take conv_wgrad_bf16, fp32 takes conv_wgrad_f32):
+// bf16 shapes take conv_wgrad_bf16):
 // * Block: one tap row dy, 64 channels of C, 128 of Co and one pixel range
 //   (split). Three consumer warpgroups, one for each dx, each hold a 64x128
 //   fp32 accumulator and issue wgmma.m64n128k16 (bf16 in, fp32 out) with
@@ -82,27 +127,26 @@
 //   (3 * S blocks fill the 132 SMs in one wave at the bench shape: S = 44,
 //   13 MB of partials), summed in order by wgrad_reduce.
 //
-// Design of the other kernels (right and simple first; wgmma, TMA and a
-// producer/consumer ring are later work):
+// conv_fwd_bf16 and conv_wgrad_bf16, the other bf16 shapes, on wmma (right
+// and simple first):
 // * x is read in place: the JAX wrapper pads x with jnp.pad (a full copy
 //   of the activation on every call); here the gather masks the 1-pixel
 //   border. Ragged M, K and Co are masked or zero-filled, so any C and Co
 //   work (the probe's small check shape has C = 8, K = 72).
 // * The reduction walks the 9 taps, then slices of C, so each row of the
 //   A tile is a run of contiguous channels of one source pixel: 16-byte
-//   loads when C and Co are multiples of 16 bytes and the pointers are
-//   16-byte aligned, element loads otherwise.
-// * bf16 runs on the tensor cores through nvcuda::wmma (16x16x16, fp32
-//   accumulate), fp32 as FMAs on the CUDA cores in full fp32 (wgmma has no
-//   fp32 input; TF32 would change the numbers).
-// * The global loads of the next slice are issued into registers before
-//   the current slice is multiplied out of shared memory.
-// * Weight gradient: the TPU kernel accumulates every grid step into one
-//   output block, which works only because the TPU grid runs in order.
-//   Here M is cut into S fixed pixel ranges; block (tile, s) writes an
-//   fp32 partial tile, and a second kernel sums the S partials of each
-//   output in the order s = 0..S-1. No float atomics: the result is
-//   bit-identical from run to run.
+//   loads when C and Co are multiples of 8 and the pointers are 16-byte
+//   aligned, element loads otherwise.
+// * nvcuda::wmma (16x16x16, fp32 accumulate); the global loads of the next
+//   slice are issued into registers before the current slice is
+//   multiplied out of shared memory.
+//
+// Weight gradient, every route: the TPU kernel accumulates every grid step
+// into one output block, which works only because the TPU grid runs in
+// order. Here M is cut into S fixed pixel ranges; block (tile, s) writes an
+// fp32 partial tile, and a second kernel sums the S partials of each output
+// in the order s = 0..S-1. No float atomics: the result is bit-identical
+// from run to run.
 //
 // Plain C interface, loaded with ctypes by selavi_tpu_torch/ops/conv3x3.py.
 
@@ -111,8 +155,6 @@
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 namespace {
 
@@ -126,13 +168,10 @@ constexpr int kWgradRows = 64;  // channels of one tap per weight-gradient block
 constexpr int kReduceThreads = 256;
 constexpr int kMaxReduceBlocks = 1024;
 
-// A 16-byte chunk of T, and the reduction depth of one slice (64 bytes of
-// a row: 32 bf16 or 16 fp32 values).
-template <typename T>
-struct Elems {
-  static constexpr int kChunk = 16 / sizeof(T);
-  static constexpr int kDepth = 64 / sizeof(T);
-};
+// bf16 values in a 16-byte chunk, and the reduction depth of one wmma
+// slice (64 bytes of a row).
+constexpr int kChunk = 8;
+constexpr int kDepth = 32;
 
 // Output columns per block: 64 when Co <= 64, else 128.
 inline int tile_cols(int co) { return co <= 64 ? 64 : 128; }
@@ -162,10 +201,9 @@ __device__ __forceinline__ Pixel pixel_of(int m, int m_end, int h, int w) {
 // The row of `dim` channels of pixel p shifted by tap (dy, dx) in the NHWC
 // tensor t, or nullptr where the tap falls on the zero border (or p is
 // past the end). dy = dx = 1 is the pixel itself.
-template <typename T>
-__device__ __forceinline__ const T* shifted_row(const T* t, Pixel p, int dy,
-                                                int dx, int h, int w,
-                                                int dim) {
+__device__ __forceinline__ const bf16* shifted_row(const bf16* t, Pixel p,
+                                                   int dy, int dx, int h,
+                                                   int w, int dim) {
   const int hh = p.h + dy - 1;
   const int ww = p.w + dx - 1;
   if (!p.ok || hh < 0 || hh >= h || ww < 0 || ww >= w) return nullptr;
@@ -175,16 +213,16 @@ __device__ __forceinline__ const T* shifted_row(const T* t, Pixel p, int dy,
 // Channels [c, c + kChunk) of `row` (a row of `dim` channels; nullptr reads
 // zeros), zero past dim. With VEC, dim and c are multiples of kChunk and
 // row is 16-byte aligned, so a chunk lies wholly inside or wholly past it.
-template <typename T, bool VEC>
-__device__ __forceinline__ uint4 load_chunk(const T* row, int c, int dim) {
+template <bool VEC>
+__device__ __forceinline__ uint4 load_chunk(const bf16* row, int c, int dim) {
   uint4 r = make_uint4(0u, 0u, 0u, 0u);
   if (row == nullptr) return r;
   if constexpr (VEC) {
     if (c < dim) r = __ldg(reinterpret_cast<const uint4*>(row + c));
   } else {
-    T* e = reinterpret_cast<T*>(&r);
+    bf16* e = reinterpret_cast<bf16*>(&r);
 #pragma unroll
-    for (int q = 0; q < Elems<T>::kChunk; ++q)
+    for (int q = 0; q < kChunk; ++q)
       if (c + q < dim) e[q] = row[c + q];
   }
   return r;
@@ -194,10 +232,8 @@ __device__ __forceinline__ uint4 load_chunk(const T* row, int c, int dim) {
 // channels [c0, c0 + kDepth), c0 = (s % c_slices) * kDepth. A tile:
 // kFwdRows pixels x kDepth channels; B tile: kDepth weight rows x BN
 // output channels.
-template <typename T, int BN, bool VEC>
+template <int BN, bool VEC>
 struct FwdStage {
-  static constexpr int kChunk = Elems<T>::kChunk;
-  static constexpr int kDepth = Elems<T>::kDepth;
   static constexpr int kARowChunks = kDepth / kChunk;
   static constexpr int kA = kFwdRows * kARowChunks / kThreads;
   static constexpr int kBRowChunks = BN / kChunk;
@@ -225,7 +261,7 @@ struct FwdStage {
     }
   }
 
-  __device__ __forceinline__ void load(const T* x, const T* w2, int s,
+  __device__ __forceinline__ void load(const bf16* x, const bf16* w2, int s,
                                        int c_slices, int h, int w, int c,
                                        int co, int co0) {
     const int tap = s / c_slices;
@@ -234,14 +270,14 @@ struct FwdStage {
     const int dx = tap - 3 * dy;
 #pragma unroll
     for (int i = 0; i < kA; ++i)
-      a[i] = load_chunk<T, VEC>(shifted_row(x, pix[i], dy, dx, h, w, c),
+      a[i] = load_chunk<VEC>(shifted_row(x, pix[i], dy, dx, h, w, c),
                                 c0 + a_col[i], c);
 #pragma unroll
     for (int i = 0; i < kB; ++i) {
       const int k = c0 + b_row[i];
-      const T* row =
+      const bf16* row =
           k < c ? w2 + (static_cast<int64_t>(tap) * c + k) * co : nullptr;
-      b[i] = load_chunk<T, VEC>(row, co0 + b_col[i], co);
+      b[i] = load_chunk<VEC>(row, co0 + b_col[i], co);
     }
   }
 };
@@ -252,8 +288,7 @@ template <int BN, bool VEC>
 __global__ void __launch_bounds__(kThreads)
 conv_fwd_bf16(const bf16* __restrict__ x, const bf16* __restrict__ w2,
               bf16* __restrict__ y, int n, int h, int w, int c, int co) {
-  using Stage = FwdStage<bf16, BN, VEC>;
-  constexpr int kDepth = Stage::kDepth;
+  using Stage = FwdStage<BN, VEC>;
   constexpr int kLdA = kDepth + 8;
   constexpr int kLdB = BN + 8;
   constexpr int kWarpCols = BN / 2;
@@ -347,95 +382,13 @@ conv_fwd_bf16(const bf16* __restrict__ x, const bf16* __restrict__ w2,
   }
 }
 
-// Forward, fp32 on the CUDA cores. Block: kFwdRows pixels x BN output
-// channels; 16 x 16 threads, 8 pixels x BN/16 channels each.
-template <int BN, bool VEC>
-__global__ void __launch_bounds__(kThreads)
-conv_fwd_f32(const float* __restrict__ x, const float* __restrict__ w2,
-             float* __restrict__ y, int n, int h, int w, int c, int co) {
-  using Stage = FwdStage<float, BN, VEC>;
-  constexpr int kDepth = Stage::kDepth;
-  constexpr int kLdA = kFwdRows + 4;
-  constexpr int kLdB = BN + 4;
-  constexpr int kTn = BN / 16;
-  __shared__ __align__(16) float As[kDepth * kLdA];  // As[k][pixel]
-  __shared__ __align__(16) float Bs[kDepth * kLdB];  // Bs[k][co]
-
-  const int m_total = n * h * w;
-  const int m0 = blockIdx.x * kFwdRows;
-  const int co0 = blockIdx.y * BN;
-  const int ty = threadIdx.x / 16;
-  const int tx = threadIdx.x % 16;
-  const int c_slices = (c + kDepth - 1) / kDepth;
-  const int steps = 9 * c_slices;
-
-  float acc[8][kTn];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < kTn; ++j) acc[i][j] = 0.f;
-
-  Stage st(m0, m_total, h, w);
-  st.load(x, w2, 0, c_slices, h, w, c, co, co0);
-  for (int s = 0; s < steps; ++s) {
-#pragma unroll
-    for (int i = 0; i < Stage::kA; ++i) {
-      const float* e = reinterpret_cast<const float*>(&st.a[i]);
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        As[(st.a_col[i] + q) * kLdA + st.a_row[i]] = e[q];
-    }
-#pragma unroll
-    for (int i = 0; i < Stage::kB; ++i)
-      *reinterpret_cast<uint4*>(&Bs[st.b_row[i] * kLdB + st.b_col[i]]) =
-          st.b[i];
-    __syncthreads();
-    if (s + 1 < steps) st.load(x, w2, s + 1, c_slices, h, w, c, co, co0);
-#pragma unroll
-    for (int k = 0; k < kDepth; ++k) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[k * kLdA + ty * 8]);
-      const float4 a1 =
-          *reinterpret_cast<const float4*>(&As[k * kLdA + ty * 8 + 4]);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      float bv[kTn];
-#pragma unroll
-      for (int q = 0; q < kTn / 4; ++q) {
-        const float4 b4 = *reinterpret_cast<const float4*>(
-            &Bs[k * kLdB + tx * kTn + 4 * q]);
-        bv[4 * q] = b4.x;
-        bv[4 * q + 1] = b4.y;
-        bv[4 * q + 2] = b4.z;
-        bv[4 * q + 3] = b4.w;
-      }
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < kTn; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int m = m0 + ty * 8 + i;
-    if (m >= m_total) continue;
-    float* dst = y + static_cast<int64_t>(m) * co;
-#pragma unroll
-    for (int j = 0; j < kTn; ++j) {
-      const int col = co0 + tx * kTn + j;
-      if (col < co) dst[col] = acc[i][j];
-    }
-  }
-}
-
 // The weight gradient's global -> register stage. Slice s is pixels
 // [p0, p0 + kDepth), p0 = p_begin + s * kDepth. A tile: kDepth pixels x
 // kWgradRows channels of x shifted by the tap; G tile: kDepth pixels x BN
-// output channels of g.
-template <typename T, int BN, bool VEC>
+// output channels of g. Elements are loaded one by one (the shapes that
+// conv_wgrad_wgmma does not take).
+template <int BN>
 struct WgradStage {
-  static constexpr int kChunk = Elems<T>::kChunk;
-  static constexpr int kDepth = Elems<T>::kDepth;
   static constexpr int kARowChunks = kWgradRows / kChunk;
   static constexpr int kA = kDepth * kARowChunks / kThreads;
   static constexpr int kBRowChunks = BN / kChunk;
@@ -461,19 +414,19 @@ struct WgradStage {
     }
   }
 
-  __device__ __forceinline__ void load(const T* x, const T* g, int p0,
+  __device__ __forceinline__ void load(const bf16* x, const bf16* g, int p0,
                                        int p_end, int dy, int dx, int c0,
                                        int co0, int h, int w, int c, int co) {
 #pragma unroll
     for (int i = 0; i < kA; ++i) {
       const Pixel p = pixel_of(p0 + a_row[i], p_end, h, w);
-      a[i] = load_chunk<T, VEC>(shifted_row(x, p, dy, dx, h, w, c),
+      a[i] = load_chunk<false>(shifted_row(x, p, dy, dx, h, w, c),
                                 c0 + a_col[i], c);
     }
 #pragma unroll
     for (int i = 0; i < kB; ++i) {
       const Pixel p = pixel_of(p0 + b_row[i], p_end, h, w);
-      b[i] = load_chunk<T, VEC>(shifted_row(g, p, 1, 1, h, w, co),
+      b[i] = load_chunk<false>(shifted_row(g, p, 1, 1, h, w, co),
                                 co0 + b_col[i], co);
     }
   }
@@ -512,13 +465,12 @@ struct WgradTile {
 // Weight gradient partials, bf16 on the tensor cores. Block: kWgradRows
 // channels x BN output channels; 8 warps as 2 (channels) x 4 (output
 // channels), 32 x BN/4 each.
-template <int BN, bool VEC>
+template <int BN>
 __global__ void __launch_bounds__(kThreads)
 conv_wgrad_bf16(const bf16* __restrict__ x, const bf16* __restrict__ g,
                 float* __restrict__ partial, int n, int h, int w, int c,
                 int co, int cpad, int copad, int pixels_per_split) {
-  using Stage = WgradStage<bf16, BN, VEC>;
-  constexpr int kDepth = Stage::kDepth;
+  using Stage = WgradStage<BN>;
   constexpr int kLdA = kWgradRows + 8;
   constexpr int kLdB = BN + 8;
   constexpr int kWarpCols = BN / 4;
@@ -587,77 +539,6 @@ conv_wgrad_bf16(const bf16* __restrict__ x, const bf16* __restrict__ g,
           out + static_cast<int64_t>(wm * 32 + i * 16) * copad +
               wn * kWarpCols + j * 16,
           acc[i][j], copad, wmma::mem_row_major);
-}
-
-// Weight gradient partials, fp32 on the CUDA cores. Block: kWgradRows
-// channels x BN output channels; 16 x 16 threads, 4 x BN/16 each.
-template <int BN, bool VEC>
-__global__ void __launch_bounds__(kThreads)
-conv_wgrad_f32(const float* __restrict__ x, const float* __restrict__ g,
-               float* __restrict__ partial, int n, int h, int w, int c,
-               int co, int cpad, int copad, int pixels_per_split) {
-  using Stage = WgradStage<float, BN, VEC>;
-  constexpr int kDepth = Stage::kDepth;
-  constexpr int kLdA = kWgradRows + 4;
-  constexpr int kLdB = BN + 4;
-  constexpr int kTn = BN / 16;
-  __shared__ __align__(16) float As[kDepth * kLdA];  // As[pixel][channel]
-  __shared__ __align__(16) float Bs[kDepth * kLdB];  // Bs[pixel][co]
-
-  const WgradTile t(c, BN, n * h * w, pixels_per_split, kDepth);
-  const int ty = threadIdx.x / 16;
-  const int tx = threadIdx.x % 16;
-
-  float acc[4][kTn];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < kTn; ++j) acc[i][j] = 0.f;
-
-  Stage st;
-  if (t.steps > 0)
-    st.load(x, g, t.p_begin, t.p_end, t.dy, t.dx, t.c0, t.co0, h, w, c, co);
-  for (int s = 0; s < t.steps; ++s) {
-#pragma unroll
-    for (int i = 0; i < Stage::kA; ++i)
-      *reinterpret_cast<uint4*>(&As[st.a_row[i] * kLdA + st.a_col[i]]) =
-          st.a[i];
-#pragma unroll
-    for (int i = 0; i < Stage::kB; ++i)
-      *reinterpret_cast<uint4*>(&Bs[st.b_row[i] * kLdB + st.b_col[i]]) =
-          st.b[i];
-    __syncthreads();
-    if (s + 1 < t.steps)
-      st.load(x, g, t.p_begin + (s + 1) * kDepth, t.p_end, t.dy, t.dx, t.c0,
-              t.co0, h, w, c, co);
-#pragma unroll
-    for (int p = 0; p < kDepth; ++p) {
-      const float4 a4 = *reinterpret_cast<const float4*>(&As[p * kLdA + ty * 4]);
-      const float av[4] = {a4.x, a4.y, a4.z, a4.w};
-      float bv[kTn];
-#pragma unroll
-      for (int q = 0; q < kTn / 4; ++q) {
-        const float4 b4 = *reinterpret_cast<const float4*>(
-            &Bs[p * kLdB + tx * kTn + 4 * q]);
-        bv[4 * q] = b4.x;
-        bv[4 * q + 1] = b4.y;
-        bv[4 * q + 2] = b4.z;
-        bv[4 * q + 3] = b4.w;
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < kTn; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  float* out = t.out(partial, cpad, copad);
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < kTn; ++j)
-      out[static_cast<int64_t>(ty * 4 + i) * copad + tx * kTn + j] = acc[i][j];
 }
 
 // ---------------------------------------------------------------------------
@@ -1391,6 +1272,692 @@ conv_fwd_wgmma(const __grid_constant__ CUtensorMap x_map,
   if (t128 == 0) bulk_wait();
 }
 
+// ---------------------------------------------------------------------------
+// fp32 on the CUDA cores (see the header): conv_fwd_f32<Tile>,
+// conv_fwd_f32_halo<Tile> and conv_wgrad_f32. All run one SIMT main loop: 256 threads, each holding a
+// block of fp32 outputs in registers, fed from a ring of 32-deep slices
+// that cp.async lands in dynamic shared memory, one __syncthreads per
+// slice. A warp is 4 x 8 threads: its B reads (two float4 per thread,
+// BN / 2 apart) cover 128 contiguous bytes and its A reads 64, so no load
+// conflicts on a bank. One block a SM: capped at two (128 registers),
+// ptxas spilled in all three loops, and each ran slower than uncapped.
+
+constexpr int kF32Threads = 256;
+constexpr int kF32Depth = 32;  // reduction values per slice
+
+// 4 bytes from global to shared, or 4 zeros where !full.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(full ? 4 : 0)
+               : "memory");
+}
+
+// Floats idx .. idx + 3 of t into shared memory at dst, as zeros from float
+// `valid` on (all four where valid <= 0). With VEC one 16-byte copy (valid
+// is then <= 0 or >= 4, and t + idx 16-byte aligned), else four of 4 bytes.
+template <bool VEC>
+__device__ __forceinline__ void copy4(uint32_t dst, const float* t,
+                                      int64_t idx, int valid) {
+  if constexpr (VEC) {
+    cp_async16(dst, valid > 0 ? t + idx : t, valid > 0);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      cp_async4(dst + 4 * e, e < valid ? t + idx + e : t, e < valid);
+  }
+}
+
+__device__ __forceinline__ float lane_of(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// acc[0..7] += a * (b0, b1): one row of a thread's outputs.
+__device__ __forceinline__ void fma_row(float* acc, float a, const float4& b0,
+                                        const float4& b1) {
+  acc[0] = fmaf(a, b0.x, acc[0]);
+  acc[1] = fmaf(a, b0.y, acc[1]);
+  acc[2] = fmaf(a, b0.z, acc[2]);
+  acc[3] = fmaf(a, b0.w, acc[3]);
+  acc[4] = fmaf(a, b1.x, acc[4]);
+  acc[5] = fmaf(a, b1.y, acc[5]);
+  acc[6] = fmaf(a, b1.z, acc[6]);
+  acc[7] = fmaf(a, b1.w, acc[7]);
+}
+
+// The forward's tile: BM output pixels x BN output channels, 256 threads
+// of 4 PX pixels x 8 channels, run by conv_fwd_f32 (one tap a slice) or,
+// with HALO, by conv_fwd_f32_halo (one tap row a slice); a slice is 32
+// channels deep. Its A tile is k-major, [32 k][BM + 4]: each
+// float of x lands at its own place by a 4-byte copy, and the pad puts the
+// 4 pixels x 8 channels of a warp's copy on distinct banks. With taps it
+// holds the block's pixels shifted by the tap and B [32 k][BN] the tap's
+// weight rows; with the halo it holds the pixels - 1 .. + BM shifted by dy
+// and B [3 dx][32 k][BN]. More stages timed the same or slower: they take
+// L1 from the 4-byte .ca copies.
+template <int BM, int BN, int PX, bool HALO>
+struct F32FwdTile {
+  static constexpr int kBM = BM;
+  static constexpr int kBN = BN;
+  static constexpr int kPx = PX;  // float4 groups of pixels a thread holds
+  static constexpr bool kHalo = HALO;
+  static constexpr int kDx = HALO ? 3 : 1;  // taps of a slice
+  static constexpr int kStages = 2;
+  static constexpr int kLdA = BM + 4;
+  static constexpr int kABytes = kF32Depth * kLdA * 4;
+  static constexpr int kStageBytes = kABytes + kDx * kF32Depth * BN * 4;
+  static constexpr int kSmemBytes = kStages * kStageBytes;
+  static constexpr int kTx = BN / 8;         // threads along the channels
+  static constexpr int kTy = BM / (4 * PX);  // threads along the pixels
+  static_assert(kTx * kTy == kF32Threads, "4 PX x 8 outputs a thread");
+  static_assert(kTx % 8 == 0, "a warp is 4 x 8 threads");
+  static_assert(kSmemBytes <= kSmemLimit, "within a block's shared memory");
+};
+// Co > 64 (the forward at the bench shape): 16 x 8 a thread, one tap a
+// slice. Co <= 64 (the dgrad): 8 x 8 a thread, the halo. Each took the
+// other design slower at the bench shape (f32_ablation's halo_wide and
+// taps_narrow): the halo's loop, with its three B tiles and dx selects,
+// loses more to its FMA loop than it saves in copies, except where the
+// copies are twice the forward's (the dgrad's 128 channels of g).
+using F32FwdWide = F32FwdTile<256, 128, 4, false>;
+using F32FwdNarrow = F32FwdTile<256, 64, 2, true>;
+
+// Forward (and dgrad), fp32. Slice s is tap s / c_slices and channels
+// c0 .. c0 + 31, c0 = (s % c_slices) * 32: the A tile is the BM pixels
+// shifted by the tap (zero where it leaves the image, past M or past C),
+// the B tile the matching 32 rows of w2. Thread (ty, tx) holds pixels
+// g BM / PX + 4 ty .. + 3 (g < PX), and channels 4 tx .. + 3 and
+// BN / 2 + 4 tx .. + 3.
+template <class Tile, bool VEC>
+__global__ void __launch_bounds__(kF32Threads, 1)
+conv_fwd_f32(const float* __restrict__ x, const float* __restrict__ w2,
+             float* __restrict__ y, int n, int h, int w, int c, int co) {
+  constexpr int BM = Tile::kBM;
+  constexpr int BN = Tile::kBN;
+  constexpr int PX = Tile::kPx;
+  constexpr int kStages = Tile::kStages;
+  constexpr int kLdA = Tile::kLdA;
+  constexpr int kARows = BM / 32;  // A pixels a thread copies, 4 floats each
+  constexpr int kBChunks = BN / 4;
+  constexpr int kBStep = kF32Threads / kBChunks;
+  constexpr int kBRows = kF32Depth / kBStep;  // B rows a thread copies
+  static_assert(!Tile::kHalo, "one tap a slice");
+  extern __shared__ __align__(16) float smem_f32[];
+  const uint32_t smem = smem_u32(smem_f32);
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int m_total = n * h * w;
+  const int m0 = blockIdx.x * BM;
+  const int co0 = blockIdx.y * BN;
+  const int c_slices = (c + kF32Depth - 1) / kF32Depth;
+  const int steps = 9 * c_slices;
+
+  // Copies: channels ak + 8 j (j < 4) of A pixels ar + 32 i, so that a warp
+  // copies 4 pixels x 8 channels; chunk bq of B rows br + kBStep i. Bit
+  // dy * 3 + dx of tap_ok[i]: tap (dy, dx) of pixel i lies on the image
+  // (none past M), found once, so that a slice tests one bit.
+  const int ak = lane % 8;
+  const int ar = 4 * warp + lane / 8;
+  const int bq = tid % kBChunks;
+  const int br = tid / kBChunks;
+  int tap_ok[kARows];
+#pragma unroll
+  for (int i = 0; i < kARows; ++i) {
+    const int p = m0 + ar + 32 * i;
+    const int pw = p % w;
+    const int ph = p / w % h;
+    const int ok_h = (ph > 0) | 2 | (ph < h - 1) << 2;
+    const int ok_w = (pw > 0) | 2 | (pw < w - 1) << 2;
+    int bits = 0;
+#pragma unroll
+    for (int t = 0; t < 9; ++t)
+      bits |= ((ok_h >> (t / 3)) & (ok_w >> (t % 3)) & 1) << t;
+    tap_ok[i] = p < m_total ? bits : 0;
+  }
+  int next_tap = 0, next_cs = 0;  // the next slice to copy
+  auto issue = [&](int slot) {
+    const uint32_t a_s = smem + slot * Tile::kStageBytes;
+    const uint32_t b_s = a_s + Tile::kABytes;
+    const int tap = next_tap;
+    const int c0 = next_cs * kF32Depth;
+    const int dy = tap / 3;
+    const int shift = (dy - 1) * w + (tap - 3 * dy) - 1;
+#pragma unroll
+    for (int i = 0; i < kARows; ++i) {
+      const int r = ar + 32 * i;
+      const bool row = (tap_ok[i] >> tap) & 1;
+      // 64-bit: rows past M or off the image overhang the tensor (read
+      // only where the copy is `in`)
+      const float* src =
+          x + static_cast<int64_t>(m0 + r + shift) * c + c0 + ak;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const bool in = row && c0 + ak + 8 * j < c;
+        cp_async4(a_s + ((ak + 8 * j) * kLdA + r) * 4, in ? src + 8 * j : x,
+                  in);
+      }
+    }
+    const int col = co0 + 4 * bq;
+#pragma unroll
+    for (int i = 0; i < kBRows; ++i) {
+      const int k = br + kBStep * i;
+      copy4<VEC>(b_s + (k * BN + 4 * bq) * 4, w2,
+                 static_cast<int64_t>(tap * c + c0 + k) * co + col,
+                 c0 + k < c ? co - col : 0);
+    }
+    if (++next_cs == c_slices) {
+      next_cs = 0;
+      ++next_tap;
+    }
+  };
+
+  const int tx = (warp % (Tile::kTx / 8)) * 8 + lane % 8;
+  const int ty = (warp / (Tile::kTx / 8)) * 4 + lane / 8;
+  float acc[4 * PX][8];
+#pragma unroll
+  for (int i = 0; i < 4 * PX; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < steps) issue(s);
+    cp_async_commit();
+  }
+  for (int s = 0; s < steps; ++s) {
+    // Slice s has landed for every thread, and every thread is done with
+    // slice s - 1, whose stage the copies of slice s + kStages - 1 take.
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    if (s + kStages - 1 < steps) issue((s + kStages - 1) % kStages);
+    cp_async_commit();
+
+    const float* stage = smem_f32 + (s % kStages) * (Tile::kStageBytes / 4);
+    const float* as = stage + 4 * ty;
+    const float* bs = stage + Tile::kABytes / 4 + 4 * tx;
+#pragma unroll
+    for (int k = 0; k < kF32Depth; ++k) {
+      float4 a[PX];
+#pragma unroll
+      for (int g = 0; g < PX; ++g)
+        a[g] = *reinterpret_cast<const float4*>(as + k * kLdA + g * (BM / PX));
+      const float4 b0 = *reinterpret_cast<const float4*>(bs + k * BN);
+      const float4 b1 = *reinterpret_cast<const float4*>(bs + k * BN + BN / 2);
+#pragma unroll
+      for (int g = 0; g < PX; ++g)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          fma_row(acc[4 * g + i], lane_of(a[g], i), b0, b1);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4 * PX; ++i) {
+    const int p = m0 + (i / 4) * (BM / PX) + 4 * ty + i % 4;
+    if (p >= m_total) continue;
+    float* dst = y + static_cast<int64_t>(p) * co;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int col = co0 + half * (BN / 2) + 4 * tx;
+      const float* v = acc[i] + 4 * half;
+      if constexpr (VEC) {
+        if (col < co)
+          *reinterpret_cast<float4*>(dst + col) =
+              make_float4(v[0], v[1], v[2], v[3]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (col + e < co) dst[col + e] = v[e];
+      }
+    }
+  }
+}
+
+// Forward (and dgrad), fp32, on the halo. Slice s is tap row dy = s /
+// c_slices and channels c0 .. c0 + 31, c0 = (s % c_slices) * 32: the A
+// tile is the halo (zero where its row shifted by dy leaves the image,
+// outside [0, M) or past C), the B tile the matching 32 rows of w2 for
+// each dx. Thread
+// (ty, tx) holds pixels g BM / PX + 4 ty .. + 3 (g < PX), and channels
+// 4 tx .. + 3 and BN / 2 + 4 tx .. + 3. Its pixel i takes tap (dy, dx)
+// from halo row g BM / PX + 4 ty + i + dx: one float4 and one float2 of a
+// halo row serve the three dx, and zeros stand in where the pixel starts
+// (dx = 0) or ends (dx = 2) its image row. With ROW4 (W % 4 == 0) a
+// thread's four pixels lie in one image row, so only the first can start
+// it and only the last can end it.
+template <class Tile, bool VEC, bool ROW4>
+__global__ void __launch_bounds__(kF32Threads, 1)
+conv_fwd_f32_halo(const float* __restrict__ x,
+                  const float* __restrict__ w2, float* __restrict__ y, int n,
+                  int h, int w, int c, int co) {
+  constexpr int BM = Tile::kBM;
+  constexpr int BN = Tile::kBN;
+  constexpr int PX = Tile::kPx;
+  constexpr int kStages = Tile::kStages;
+  constexpr int kLdA = Tile::kLdA;
+  constexpr int kARows = BM / 32;  // halo rows a thread copies, 4 floats each
+  constexpr int kBChunks = BN / 4;
+  constexpr int kBStep = kF32Threads / kBChunks;
+  constexpr int kBRows = Tile::kDx * kF32Depth / kBStep;  // B rows to copy
+  static_assert(Tile::kHalo, "one tap row a slice");
+  static_assert(kF32Depth % kBStep == 0, "a copy's B rows share their dx");
+  extern __shared__ __align__(16) float smem_f32[];
+  const uint32_t smem = smem_u32(smem_f32);
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int m_total = n * h * w;
+  const int m0 = blockIdx.x * BM;
+  const int co0 = blockIdx.y * BN;
+  const int c_slices = (c + kF32Depth - 1) / kF32Depth;
+  const int steps = 3 * c_slices;
+
+  // Copies: channels ak + 8 j (j < 4) of halo rows ar + 32 i, so that a
+  // warp copies 4 rows x 8 channels, and for tid < 64 channel tid % 32 of
+  // row BM + tid / 32 (i = kARows). Halo row r holds pixel m0 - 1 + r; bit
+  // dy of row_ok[i]: that pixel lies in [0, M) and its image row shifted by
+  // dy on the image, found once, so that a slice tests one bit.
+  const int ak = lane % 8;
+  const int ar = 4 * warp + lane / 8;
+  const int bq = tid % kBChunks;
+  const int br = tid / kBChunks;
+  int row_ok[kARows + 1];
+#pragma unroll
+  for (int i = 0; i <= kARows; ++i) {
+    const int q = m0 - 1 + (i < kARows ? ar + 32 * i : BM + tid / 32);
+    const int qh = q < 0 ? 0 : q / w % h;
+    row_ok[i] = q >= 0 && q < m_total
+                    ? (qh > 0) | 2 | (qh < h - 1) << 2
+                    : 0;
+  }
+  int next_dy = 0, next_cs = 0;  // the next slice to copy
+  auto issue = [&](int slot) {
+    const uint32_t a_s = smem + slot * Tile::kStageBytes;
+    const uint32_t b_s = a_s + Tile::kABytes;
+    const int dy = next_dy;
+    const int c0 = next_cs * kF32Depth;
+    const int shift = (dy - 1) * w - 1;  // halo row r: pixel m0 + r + shift
+#pragma unroll
+    for (int i = 0; i <= kARows; ++i) {
+      if (i == kARows && tid >= 64) break;
+      const int r = i < kARows ? ar + 32 * i : BM + tid / 32;
+      const bool row = (row_ok[i] >> dy) & 1;
+      // 64-bit: rows past M or off the image overhang the tensor (read only
+      // where the copy is `in`)
+      const float* src = x + static_cast<int64_t>(m0 + r + shift) * c + c0;
+#pragma unroll
+      for (int j = 0; j < (i < kARows ? 4 : 1); ++j) {
+        const int k = i < kARows ? ak + 8 * j : tid % 32;
+        const bool in = row && c0 + k < c;
+        cp_async4(a_s + (k * kLdA + r) * 4, in ? src + k : x, in);
+      }
+    }
+    const int col = co0 + 4 * bq;
+    const float* wt = w2 + static_cast<int64_t>(3 * dy * c + c0) * co + col;
+#pragma unroll
+    for (int i = 0; i < kBRows; ++i) {
+      const int dx = kBStep * i / kF32Depth;
+      const int k = kBStep * i % kF32Depth + br;
+      copy4<VEC>(b_s + ((dx * kF32Depth + k) * BN + 4 * bq) * 4, wt,
+                 static_cast<int64_t>(dx * c + k) * co,
+                 c0 + k < c ? co - col : 0);
+    }
+    if (++next_cs == c_slices) {
+      next_cs = 0;
+      ++next_dy;
+    }
+  };
+
+  const int tx = (warp % (Tile::kTx / 8)) * 8 + lane % 8;
+  const int ty = (warp / (Tile::kTx / 8)) * 4 + lane / 8;
+  // Bit i of first[g] (last[g]): pixel g BM / PX + 4 ty + i starts (ends)
+  // its image row.
+  int first[PX], last[PX];
+#pragma unroll
+  for (int g = 0; g < PX; ++g) {
+    first[g] = last[g] = 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int pw = (m0 + g * (BM / PX) + 4 * ty + i) % w;
+      first[g] |= (pw == 0) << i;
+      last[g] |= (pw == w - 1) << i;
+    }
+  }
+  float acc[4 * PX][8];
+#pragma unroll
+  for (int i = 0; i < 4 * PX; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < steps) issue(s);
+    cp_async_commit();
+  }
+  for (int s = 0; s < steps; ++s) {
+    // Slice s has landed for every thread, and every thread is done with
+    // slice s - 1, whose stage the copies of slice s + kStages - 1 take.
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    if (s + kStages - 1 < steps) issue((s + kStages - 1) % kStages);
+    cp_async_commit();
+
+    const float* stage = smem_f32 + (s % kStages) * (Tile::kStageBytes / 4);
+    const float* as = stage + 4 * ty;
+    const float* bs = stage + Tile::kABytes / 4 + 4 * tx;
+#pragma unroll
+    for (int k = 0; k < kF32Depth; ++k) {
+      float4 a0[PX];
+      float2 a1[PX];
+#pragma unroll
+      for (int g = 0; g < PX; ++g) {
+        const float* row = as + k * kLdA + g * (BM / PX);
+        a0[g] = *reinterpret_cast<const float4*>(row);
+        a1[g] = *reinterpret_cast<const float2*>(row + 4);
+      }
+#pragma unroll
+      for (int dx = 0; dx < 3; ++dx) {
+        const float* b = bs + (dx * kF32Depth + k) * BN;
+        const float4 b0 = *reinterpret_cast<const float4*>(b);
+        const float4 b1 = *reinterpret_cast<const float4*>(b + BN / 2);
+#pragma unroll
+        for (int g = 0; g < PX; ++g)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int e = i + dx;
+            float a = e < 4 ? lane_of(a0[g], e) : e == 4 ? a1[g].x : a1[g].y;
+            if (dx == 0 && (!ROW4 || i == 0) && (first[g] >> i & 1)) a = 0.f;
+            if (dx == 2 && (!ROW4 || i == 3) && (last[g] >> i & 1)) a = 0.f;
+            fma_row(acc[4 * g + i], a, b0, b1);
+          }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4 * PX; ++i) {
+    const int p = m0 + (i / 4) * (BM / PX) + 4 * ty + i % 4;
+    if (p >= m_total) continue;
+    float* dst = y + static_cast<int64_t>(p) * co;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int col = co0 + half * (BN / 2) + 4 * tx;
+      const float* v = acc[i] + 4 * half;
+      if constexpr (VEC) {
+        if (col < co)
+          *reinterpret_cast<float4*>(dst + col) =
+              make_float4(v[0], v[1], v[2], v[3]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (col + e < co) dst[col + e] = v[e];
+      }
+    }
+  }
+}
+
+// The weight gradient's block: one tap row dy, 64 channels of C (for each
+// of the three dx) and 128 of Co, over one pixel range. A stage is a slice
+// of 32 pixels: X, the halo tile [34][64] of x at the slice's pixels - 1 ..
+// + 32 shifted by dy rows (zero where that row leaves the image, outside
+// [0, M) or past C), and G [32][128] of g (zero past the range or Co).
+constexpr int kF32WgRows = 64;
+constexpr int kF32WgCols = 128;
+constexpr int kF32WgHalo = kF32Depth + 2;
+constexpr int kF32WgXBytes = kF32WgHalo * kF32WgRows * 4;
+constexpr int kF32WgStageBytes = kF32WgXBytes + kF32Depth * kF32WgCols * 4;
+constexpr int kF32WgStages = 6;
+// + one row of zeros, which a dx tap that leaves the image reads
+constexpr int kF32WgSmemBytes =
+    kF32WgStages * kF32WgStageBytes + kF32WgRows * 4;
+static_assert(kF32WgSmemBytes <= kSmemLimit, "within a block's shared memory");
+
+// Weight gradient partials, fp32. Pixel r of a slice takes tap (dy, dx)
+// from halo row r + dx, or from the zero row where r is the first (dx = 0)
+// or last (dx = 2) pixel of its image row. Thread (ty, tx) holds, for each
+// dx, channels 4 ty .. + 3 against output channels 4 tx .. + 3 and
+// 64 + 4 tx .. + 3: 12 x 8 outputs. blockIdx.x = (dy * co_blocks +
+// output-channel block) * c_blocks + channel block, blockIdx.y = split: the
+// blocks that read the same pixels are neighbours in launch order.
+template <bool VEC>
+__global__ void __launch_bounds__(kF32Threads, 1)
+conv_wgrad_f32(const float* __restrict__ x, const float* __restrict__ g,
+               float* __restrict__ partial, int n, int h, int w, int c,
+               int co, int cpad, int copad, int pixels_per_split) {
+  extern __shared__ __align__(16) float smem_f32[];
+  const uint32_t smem = smem_u32(smem_f32);
+  float* zero_row = smem_f32 + kF32WgStages * kF32WgStageBytes / 4;
+
+  const int tid = threadIdx.x;
+  const int c_blocks = (c + kF32WgRows - 1) / kF32WgRows;
+  const int co_blocks = (co + kF32WgCols - 1) / kF32WgCols;
+  const int c0 = (blockIdx.x % c_blocks) * kF32WgRows;
+  const int co0 = (blockIdx.x / c_blocks % co_blocks) * kF32WgCols;
+  const int dy = blockIdx.x / (c_blocks * co_blocks);
+  const int split = blockIdx.y;
+  const int m_total = n * h * w;
+  const int p_begin = split * pixels_per_split;
+  const int p_end = static_cast<int>(
+      min(static_cast<int64_t>(m_total),
+          static_cast<int64_t>(p_begin) + pixels_per_split));
+  const int steps =
+      p_end > p_begin ? (p_end - p_begin + kF32Depth - 1) / kF32Depth : 0;
+  if (tid < kF32WgRows) zero_row[tid] = 0.f;
+
+  // Copies: chunk gq of G rows gr + 8 i; chunk xq of halo rows xr + 16 i
+  // (i < 2), and for tid < 32 of halo row 32 + xr. A halo row's pixel is
+  // tracked as (hh, ww) from slice to slice, so the loop divides nothing;
+  // pixel -1 (before the first) counts as the last pixel of an image.
+  const int gq = tid % 32;
+  const int gr = tid / 32;
+  const int xq = tid % 16;
+  const int xr = tid / 16;
+  const int step_w = kF32Depth % w;
+  const int step_h = (kF32Depth / w) % h;
+  auto advance = [&](int& hh, int& ww) {
+    ww += step_w;
+    hh += step_h;
+    if (ww >= w) {
+      ww -= w;
+      ++hh;
+    }
+    if (hh >= h) hh -= h;
+  };
+  int hh[3], ww[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const int p = p_begin - 1 + (i < 2 ? xr + 16 * i : 32 + xr);
+    const int row = p < 0 ? h - 1 : p / w;
+    ww[i] = p < 0 ? w - 1 : p - row * w;
+    hh[i] = row % h;
+  }
+  const int x_shift = (dy - 1) * w;
+  const int x_valid = c - c0 - 4 * xq;
+  const int g_col = co0 + 4 * gq;
+  int ps_next = p_begin;  // the first pixel of the next slice to copy
+  int slot_next = 0;
+  auto issue = [&]() {
+    const uint32_t x_s = smem + slot_next * kF32WgStageBytes;
+    const uint32_t g_s = x_s + kF32WgXBytes;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = gr + 8 * i;
+      const int p = ps_next + r;
+      copy4<VEC>(g_s + (r * kF32WgCols + 4 * gq) * 4, g,
+                 static_cast<int64_t>(p) * co + g_col,
+                 p < p_end ? co - g_col : 0);
+    }
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      if (i < 2 || tid < 32) {
+        const int j = i < 2 ? xr + 16 * i : 32 + xr;
+        const int p = ps_next - 1 + j;
+        const bool in = p >= 0 && p < m_total &&
+                        static_cast<unsigned>(hh[i] + dy - 1) <
+                            static_cast<unsigned>(h);
+        copy4<VEC>(x_s + (j * kF32WgRows + 4 * xq) * 4, x,
+                   static_cast<int64_t>(p + x_shift) * c + c0 + 4 * xq,
+                   in ? x_valid : 0);
+        advance(hh[i], ww[i]);
+      }
+    }
+    ps_next += kF32Depth;
+    slot_next = slot_next + 1 == kF32WgStages ? 0 : slot_next + 1;
+  };
+
+  // Lane l tracks the column of pixel l of the warp's current slice: the
+  // warp's ballots give the slice's image-row starts and ends.
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  int lane_w = (p_begin + lane) % w;
+  const int tx = (warp % 2) * 8 + lane % 8;
+  const int ty = (warp / 2) * 4 + lane / 8;
+  float acc[3][4][8];
+#pragma unroll
+  for (int d = 0; d < 3; ++d)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[d][i][j] = 0.f;
+
+  for (int s = 0; s < kF32WgStages - 1; ++s) {
+    if (s < steps) issue();
+    cp_async_commit();
+  }
+  for (int s = 0; s < steps; ++s) {
+    cp_async_wait<kF32WgStages - 2>();
+    __syncthreads();
+    if (s + kF32WgStages - 1 < steps) issue();
+    cp_async_commit();
+
+    const unsigned first = __ballot_sync(0xffffffffu, lane_w == 0);
+    const unsigned last = __ballot_sync(0xffffffffu, lane_w == w - 1);
+    lane_w += step_w;
+    if (lane_w >= w) lane_w -= w;
+    const float* stage =
+        smem_f32 + (s % kF32WgStages) * (kF32WgStageBytes / 4);
+    const float* xs = stage + 4 * ty;
+    const float* gs = stage + kF32WgXBytes / 4 + 4 * tx;
+    const float* zs = zero_row + 4 * ty;
+#pragma unroll 8
+    for (int r = 0; r < kF32Depth; ++r) {
+      const float4 b0 = *reinterpret_cast<const float4*>(gs + r * kF32WgCols);
+      const float4 b1 =
+          *reinterpret_cast<const float4*>(gs + r * kF32WgCols + 64);
+      float4 a[3];
+      a[0] = *reinterpret_cast<const float4*>(
+          (first >> r) & 1 ? zs : xs + r * kF32WgRows);
+      a[1] = *reinterpret_cast<const float4*>(xs + (r + 1) * kF32WgRows);
+      a[2] = *reinterpret_cast<const float4*>(
+          (last >> r) & 1 ? zs : xs + (r + 2) * kF32WgRows);
+#pragma unroll
+      for (int d = 0; d < 3; ++d)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          fma_row(acc[d][i], lane_of(a[d], i), b0, b1);
+    }
+  }
+
+  // The scratch is padded to whole 64-channel rows and columns (copad is
+  // 64 when Co <= 64): columns past it are not stored.
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    float* out = partial +
+                 ((static_cast<int64_t>(split) * 9 + dy * 3 + d) * cpad + c0 +
+                  4 * ty) * copad + co0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int col = half * 64 + 4 * tx;
+        const float* v = acc[d][i] + 4 * half;
+        if (co0 + col < copad)
+          *reinterpret_cast<float4*>(out + static_cast<int64_t>(i) * copad +
+                                     col) =
+              make_float4(v[0], v[1], v[2], v[3]);
+      }
+  }
+}
+
+template <class Tile, bool VEC, bool ROW4>
+cudaError_t launch_fwd_f32_tile(const void* x, const void* w2, void* y, int n,
+                                int h, int w, int c, int co,
+                                cudaStream_t stream) {
+  void (*kernel)(const float*, const float*, float*, int, int, int, int, int);
+  if constexpr (Tile::kHalo)
+    kernel = conv_fwd_f32_halo<Tile, VEC, ROW4>;
+  else
+    kernel = conv_fwd_f32<Tile, VEC>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Tile::kSmemBytes);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((n * h * w + Tile::kBM - 1) / Tile::kBM,
+                  (co + Tile::kBN - 1) / Tile::kBN);
+  kernel<<<grid, kF32Threads, Tile::kSmemBytes, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w2),
+      static_cast<float*>(y), n, h, w, c, co);
+  return cudaGetLastError();
+}
+
+// ROW4 matters only to the halo: the taps' tile takes one instance.
+template <class Tile>
+cudaError_t launch_fwd_f32_for(const void* x, const void* w2, void* y, int n,
+                               int h, int w, int c, int co, bool vec,
+                               cudaStream_t stream) {
+  if (!Tile::kHalo || w % 4 == 0)
+    return vec ? launch_fwd_f32_tile<Tile, true, true>(x, w2, y, n, h, w, c,
+                                                       co, stream)
+               : launch_fwd_f32_tile<Tile, false, true>(x, w2, y, n, h, w, c,
+                                                        co, stream);
+  if constexpr (Tile::kHalo)
+    return vec ? launch_fwd_f32_tile<Tile, true, false>(x, w2, y, n, h, w, c,
+                                                        co, stream)
+               : launch_fwd_f32_tile<Tile, false, false>(x, w2, y, n, h, w,
+                                                         c, co, stream);
+  return cudaErrorInvalidValue;  // not reached
+}
+
+cudaError_t launch_fwd_f32(const void* x, const void* w2, void* y, int n,
+                           int h, int w, int c, int co, cudaStream_t stream) {
+  const bool vec = c % 4 == 0 && co % 4 == 0 && aligned16(x) &&
+                   aligned16(w2) && aligned16(y);
+  return co <= 64 ? launch_fwd_f32_for<F32FwdNarrow>(x, w2, y, n, h, w, c, co,
+                                                     vec, stream)
+                  : launch_fwd_f32_for<F32FwdWide>(x, w2, y, n, h, w, c, co,
+                                                   vec, stream);
+}
+
+template <bool VEC>
+cudaError_t launch_wgrad_f32_vec(const void* x, const void* g,
+                                 float* partial, int n, int h, int w, int c,
+                                 int co, int cpad, int copad, int splits,
+                                 int pixels_per_split, cudaStream_t stream) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      conv_wgrad_f32<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kF32WgSmemBytes);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(3 * ((c + kF32WgRows - 1) / kF32WgRows) *
+                      ((co + kF32WgCols - 1) / kF32WgCols),
+                  splits);
+  conv_wgrad_f32<VEC><<<grid, kF32Threads, kF32WgSmemBytes, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(g), partial, n,
+      h, w, c, co, cpad, copad, pixels_per_split);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_wgrad_f32(const void* x, const void* g, float* partial,
+                             int n, int h, int w, int c, int co, int cpad,
+                             int copad, int splits, int pixels_per_split,
+                             cudaStream_t stream) {
+  if (c % 4 == 0 && co % 4 == 0 && aligned16(x) && aligned16(g))
+    return launch_wgrad_f32_vec<true>(x, g, partial, n, h, w, c, co, cpad,
+                                      copad, splits, pixels_per_split,
+                                      stream);
+  return launch_wgrad_f32_vec<false>(x, g, partial, n, h, w, c, co, cpad,
+                                     copad, splits, pixels_per_split, stream);
+}
+
 // dW[tap, ch, col] = sum over s = 0..S-1, in that order, of the partials.
 __global__ void __launch_bounds__(kReduceThreads)
 wgrad_reduce(const float* __restrict__ partial, float* __restrict__ out,
@@ -1411,62 +1978,41 @@ wgrad_reduce(const float* __restrict__ partial, float* __restrict__ out,
   }
 }
 
-template <typename T, int BN, bool VEC>
-void launch_fwd(const void* x, const void* w2, void* y, int n, int h, int w,
-                int c, int co, cudaStream_t stream) {
+template <int BN, bool VEC>
+void launch_fwd_bf16(const void* x, const void* w2, void* y, int n, int h,
+                     int w, int c, int co, cudaStream_t stream) {
   const int m_total = n * h * w;
   const dim3 grid((m_total + kFwdRows - 1) / kFwdRows, (co + BN - 1) / BN);
-  if constexpr (std::is_same<T, bf16>::value)
-    conv_fwd_bf16<BN, VEC><<<grid, kThreads, 0, stream>>>(
-        static_cast<const bf16*>(x), static_cast<const bf16*>(w2),
-        static_cast<bf16*>(y), n, h, w, c, co);
-  else
-    conv_fwd_f32<BN, VEC><<<grid, kThreads, 0, stream>>>(
-        static_cast<const float*>(x), static_cast<const float*>(w2),
-        static_cast<float*>(y), n, h, w, c, co);
+  conv_fwd_bf16<BN, VEC><<<grid, kThreads, 0, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w2),
+      static_cast<bf16*>(y), n, h, w, c, co);
 }
 
-template <typename T>
-void dispatch_fwd(const void* x, const void* w2, void* y, int n, int h,
-                  int w, int c, int co, cudaStream_t stream) {
-  constexpr int kChunk = Elems<T>::kChunk;
+void dispatch_fwd_bf16(const void* x, const void* w2, void* y, int n, int h,
+                       int w, int c, int co, cudaStream_t stream) {
   const bool vec = c % kChunk == 0 && co % kChunk == 0 && aligned16(x) &&
                    aligned16(w2) && aligned16(y);
   if (tile_cols(co) == 64) {
-    if (vec) launch_fwd<T, 64, true>(x, w2, y, n, h, w, c, co, stream);
-    else launch_fwd<T, 64, false>(x, w2, y, n, h, w, c, co, stream);
+    if (vec) launch_fwd_bf16<64, true>(x, w2, y, n, h, w, c, co, stream);
+    else launch_fwd_bf16<64, false>(x, w2, y, n, h, w, c, co, stream);
   } else {
-    if (vec) launch_fwd<T, 128, true>(x, w2, y, n, h, w, c, co, stream);
-    else launch_fwd<T, 128, false>(x, w2, y, n, h, w, c, co, stream);
+    if (vec) launch_fwd_bf16<128, true>(x, w2, y, n, h, w, c, co, stream);
+    else launch_fwd_bf16<128, false>(x, w2, y, n, h, w, c, co, stream);
   }
 }
 
-template <typename T, int BN, bool VEC>
-void launch_wgrad(const void* x, const void* g, float* partial, int n, int h,
-                  int w, int c, int co, int cpad, int copad, int splits,
-                  int pixels_per_split, cudaStream_t stream) {
+// The wmma weight gradient takes the bf16 shapes that wgmma does not: C or
+// Co % 8 != 0, or unaligned tensors, so it loads elements.
+template <int BN>
+void launch_wgrad_bf16(const void* x, const void* g, float* partial, int n,
+                       int h, int w, int c, int co, int cpad, int copad,
+                       int splits, int pixels_per_split,
+                       cudaStream_t stream) {
   const dim3 grid(9 * ((c + kWgradRows - 1) / kWgradRows),
                   (co + BN - 1) / BN, splits);
-  if constexpr (std::is_same<T, bf16>::value)
-    conv_wgrad_bf16<BN, VEC><<<grid, kThreads, 0, stream>>>(
-        static_cast<const bf16*>(x), static_cast<const bf16*>(g), partial, n,
-        h, w, c, co, cpad, copad, pixels_per_split);
-  else
-    conv_wgrad_f32<BN, VEC><<<grid, kThreads, 0, stream>>>(
-        static_cast<const float*>(x), static_cast<const float*>(g), partial,
-        n, h, w, c, co, cpad, copad, pixels_per_split);
-}
-
-template <typename T, bool VEC>
-void dispatch_wgrad(const void* x, const void* g, float* partial, int n,
-                    int h, int w, int c, int co, int cpad, int copad,
-                    int splits, int pixels_per_split, cudaStream_t stream) {
-  if (tile_cols(co) == 64)
-    launch_wgrad<T, 64, VEC>(x, g, partial, n, h, w, c, co, cpad, copad,
-                             splits, pixels_per_split, stream);
-  else
-    launch_wgrad<T, 128, VEC>(x, g, partial, n, h, w, c, co, cpad, copad,
-                              splits, pixels_per_split, stream);
+  conv_wgrad_bf16<BN><<<grid, kThreads, 0, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(g), partial, n, h,
+      w, c, co, cpad, copad, pixels_per_split);
 }
 
 cudaError_t launch_wgrad_wgmma(const void* x, const void* g, float* partial,
@@ -1605,11 +2151,17 @@ int conv3x3_fwd(const void* x, const void* w2, void* y, int route, int n,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (route == kRouteWgmma)
     return static_cast<int>(launch_fwd_wgmma(x, w2, y, n, h, w, c, co, s));
-  if (route == kRouteWmma)
-    dispatch_fwd<bf16>(x, w2, y, n, h, w, c, co, s);
-  else
-    dispatch_fwd<float>(x, w2, y, n, h, w, c, co, s);
+  if (route == kRouteF32)
+    return static_cast<int>(launch_fwd_f32(x, w2, y, n, h, w, c, co, s));
+  dispatch_fwd_bf16(x, w2, y, n, h, w, c, co, s);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Bytes of dynamic shared memory of the fp32 kernels: the weight gradient's
+// (wgrad != 0) or the forward's for `co` output channels.
+long long conv3x3_f32_smem(int wgrad, int co) {
+  if (wgrad) return kF32WgSmemBytes;
+  return co <= 64 ? F32FwdNarrow::kSmemBytes : F32FwdWide::kSmemBytes;
 }
 
 // Floats of fp32 scratch that conv3x3_wgrad needs for `splits` splits.
@@ -1648,20 +2200,16 @@ int conv3x3_wgrad(const void* x, const void* g, float* partial,
     e = launch_wgrad_wgmma(x, g, partial, n, h, w, c, co, cpad, copad,
                            splits, pixels_per_split, s);
   } else if (route == kRouteWmma) {
-    // The shapes that reach it have C or Co % 8 != 0 (or unaligned
-    // tensors): element loads.
-    dispatch_wgrad<bf16, false>(x, g, partial, n, h, w, c, co, cpad, copad,
-                                splits, pixels_per_split, s);
+    if (tile_cols(co) == 64)
+      launch_wgrad_bf16<64>(x, g, partial, n, h, w, c, co, cpad, copad,
+                            splits, pixels_per_split, s);
+    else
+      launch_wgrad_bf16<128>(x, g, partial, n, h, w, c, co, cpad, copad,
+                             splits, pixels_per_split, s);
     e = cudaGetLastError();
   } else {
-    constexpr int kChunk = Elems<float>::kChunk;
-    if (c % kChunk == 0 && co % kChunk == 0 && aligned16(x) && aligned16(g))
-      dispatch_wgrad<float, true>(x, g, partial, n, h, w, c, co, cpad, copad,
-                                  splits, pixels_per_split, s);
-    else
-      dispatch_wgrad<float, false>(x, g, partial, n, h, w, c, co, cpad,
-                                   copad, splits, pixels_per_split, s);
-    e = cudaGetLastError();
+    e = launch_wgrad_f32(x, g, partial, n, h, w, c, co, cpad, copad, splits,
+                         pixels_per_split, s);
   }
   if (e != cudaSuccess) return static_cast<int>(e);
   const int total = 9 * c * co;

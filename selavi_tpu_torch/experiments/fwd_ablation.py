@@ -21,15 +21,15 @@ from concurrent.futures import ThreadPoolExecutor
 import torch
 
 from selavi_tpu_torch.device import resolve_device
+from selavi_tpu_torch.experiments._ablation import (
+    build_variant,
+    ptxas_report,
+    using,
+)
 from selavi_tpu_torch.experiments.conv3x3 import (
     BENCH_SHAPE,
     library_conv3x3,
     library_dgrad,
-)
-from selavi_tpu_torch.experiments.wgrad_ablation import (
-    build_variant,
-    ptxas_report,
-    using,
 )
 from selavi_tpu_torch.measure import card_description, cuda_ms
 from selavi_tpu_torch.ops import conv3x3 as conv

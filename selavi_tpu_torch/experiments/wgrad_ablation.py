@@ -15,16 +15,18 @@ are for. It also prints the ``ptxas -v`` report of the unedited kernel
 
 from __future__ import annotations
 
-import contextlib
-import subprocess
 from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
 from selavi_tpu_torch.device import resolve_device
+from selavi_tpu_torch.experiments._ablation import (
+    build_variant,
+    ptxas_report,
+    using,
+)
 from selavi_tpu_torch.experiments.conv3x3 import BENCH_SHAPE, library_wgrad
 from selavi_tpu_torch.measure import card_description, cuda_ms
-from selavi_tpu_torch.ops import _build
 from selavi_tpu_torch.ops import conv3x3 as conv
 
 BUILD = "    if (s + 1 < steps) build(s + 1);\n"
@@ -46,61 +48,17 @@ VARIANTS = {
 }
 
 
-def ptxas_report(kernel: str = "conv_wgrad_wgmma") -> str:
-    """``ptxas -v`` lines of every entry of ``csrc/conv3x3.cu`` whose name
-    holds ``kernel`` (each instance of a template), from a build with the
-    library's flags; with them any warning that ptxas gave about it."""
-    out = _build.BUILD_DIR / "ablation" / "ptxas_probe.so"
-    out.parent.mkdir(parents=True, exist_ok=True)
-    proc = subprocess.run(
-        [_build.nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(out),
-         str(conv.SOURCE)], capture_output=True, text=True, check=True)
-    lines = (proc.stdout + proc.stderr).splitlines()
-    starts = [i for i, line in enumerate(lines)
-              if "Compiling entry" in line and kernel in line]
-    if not starts:
-        raise RuntimeError(f"ptxas compiled no entry named like {kernel}")
-    # ptxas gives its performance warnings (such as wgmma serialized) as
-    # "info" lines that name the function.
-    warnings = [line for line in lines if kernel in line and (
-        "warning" in line.lower() or "Performance Loss" in line)]
-    return "\n".join(warnings + [line for i in starts
-                                  for line in lines[i:i + 4]])
-
-
-def build_variant(name: str, edits=None):
-    """``csrc/conv3x3.cu`` with the (text, replacement) ``edits`` of variant
-    ``name`` (by default this module's), built and loaded."""
-    text = conv.SOURCE.read_text()
-    for old, new in VARIANTS[name] if edits is None else edits:
-        if old not in text:
-            raise RuntimeError(f"variant {name}: {old!r} is not in "
-                               f"{conv.SOURCE.name}")
-        text = text.replace(old, new)
-    source = _build.BUILD_DIR / "ablation" / f"conv3x3_{name}.cu"
-    source.parent.mkdir(parents=True, exist_ok=True)
-    source.write_text(text)
-    return conv.load_library(_build.build_library(source))
-
-
-@contextlib.contextmanager
-def using(lib):
-    saved, conv._lib = conv._lib, lib
-    try:
-        yield
-    finally:
-        conv._lib = saved
-
-
 def main() -> dict:
     device = resolve_device(None)
     if device.type != "cuda":
         raise RuntimeError("the ablation times the card: it needs a CUDA "
                            "device")
     print(f"card: {card_description()}", flush=True)
-    print(ptxas_report(), flush=True)
+    print(ptxas_report("conv_wgrad_wgmma"), flush=True)
     with ThreadPoolExecutor(len(VARIANTS)) as pool:
-        libs = dict(zip(VARIANTS, pool.map(build_variant, VARIANTS)))
+        libs = dict(zip(VARIANTS, pool.map(
+            lambda name: build_variant(f"wgrad_{name}", VARIANTS[name]),
+            VARIANTS)))
 
     n, h, wd, c, co = BENCH_SHAPE
     gen = torch.Generator(device=device).manual_seed(0)

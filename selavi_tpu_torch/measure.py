@@ -42,10 +42,19 @@ def memory_bandwidth(device=0) -> float:
     return HBM_BYTES_PER_S
 
 
-def card_description() -> str:
-    """``name, power.limit`` of the first card, as nvidia-smi prints it."""
+def _query_first_card(fields: str) -> str:
     return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+
+
+def card_description() -> str:
+    """``name, power.limit`` of the first card, as nvidia-smi prints it."""
+    return _query_first_card("name,power.limit")
+
+
+def sm_clocks() -> str:
+    """``clocks.sm, clocks.max.sm`` of the first card, as nvidia-smi prints
+    them: the SM clock now and its maximum."""
+    return _query_first_card("clocks.sm,clocks.max.sm")

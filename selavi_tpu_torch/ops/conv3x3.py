@@ -52,15 +52,28 @@ FWD_SLICE = 64
 FWD_STAGES = 3
 FWD_STAGE_BYTES = 66 * 128
 FWD_SMEM_LIMIT = 232448
+# The fp32 kernels' dynamic shared memory (as ``csrc/conv3x3.cu``'s
+# conv3x3_f32_smem): slices F32_DEPTH values deep. The forward's 2 stages
+# hold an A tile of F32_DEPTH x (256 + 4) floats (256 pixels, a pad) and a
+# B tile of F32_DEPTH x BN for Co > 64 (BN = 128, one tap a slice), or of 3
+# x F32_DEPTH x BN for Co <= 64 (BN = 64, a tap row a slice: the three dx
+# read one halo tile). The
+# weight gradient's F32_WGRAD_STAGES stages hold a halo tile of F32_DEPTH + 2
+# pixels x 64 channels and a g tile of F32_DEPTH x 128, beside a zero row
+# of 64 floats.
+F32_DEPTH = 32
+F32_WGRAD_STAGES = 6
 # Weight gradient: pixel ranges, each a multiple of SPLIT_ALIGN, whose
-# partials are reduced in a fixed order. fp32 and wmma: at most MAX_SPLITS
-# ranges of at least MIN_SPLIT_PIXELS. wgmma: enough ranges that its
-# 3 * (C blocks) * (Co blocks) * S blocks fill WAVE_BLOCKS, the H100's SM
-# count, once. Both depend on the shape alone, not on the card.
+# partials are reduced in a fixed order. wmma: at most MAX_SPLITS ranges of
+# at least MIN_SPLIT_PIXELS. wgmma and fp32 (one block on each SM): enough
+# ranges that their 3 * (C blocks) * (Co blocks) * S blocks fill
+# WAVE_BLOCKS, the H100's SM count, once. Both depend on the shape alone,
+# not on the card.
 MAX_SPLITS = 256
 MIN_SPLIT_PIXELS = 256
 WAVE_BLOCKS = 132
-WGMMA_ROWS, WGMMA_COLS = 64, 128  # channels of C and of Co per wgmma block
+# channels of C and of Co per wgmma or fp32 weight-gradient block
+TILE_ROWS, TILE_COLS = 64, 128
 SPLIT_ALIGN = 64  # pixels; a multiple of every kernel's slice depth
 INT32_LIMIT = 2 ** 31  # the kernels index pixels and channels in int32
 DTYPES = (torch.float32, torch.bfloat16)
@@ -96,6 +109,8 @@ def load_library(path: Path) -> ctypes.CDLL:
     lib.conv3x3_fwd.restype = i32
     lib.conv3x3_fwd_wgmma_smem.argtypes = [i32, i32]
     lib.conv3x3_fwd_wgmma_smem.restype = ctypes.c_longlong
+    lib.conv3x3_f32_smem.argtypes = [i32, i32]
+    lib.conv3x3_f32_smem.restype = ctypes.c_longlong
     lib.conv3x3_wgrad_scratch.argtypes = [i32, i32, i32]
     lib.conv3x3_wgrad_scratch.restype = ctypes.c_longlong
     lib.conv3x3_wgrad.argtypes = (
@@ -201,6 +216,17 @@ def fwd_smem_bytes(c: int, co: int) -> int:
             + 2 * FWD_STAGES * (FWD_STAGE_BYTES + 8) + 128)
 
 
+def f32_smem_bytes(kernel: str, co: int = 0) -> int:
+    """Dynamic shared memory of the fp32 ``kernel`` ("forward", whose tile
+    follows its ``co`` output channels, or "wgrad")."""
+    if kernel == "wgrad":
+        return (F32_WGRAD_STAGES * ((F32_DEPTH + 2) * 64 + F32_DEPTH * 128)
+                + 64) * 4
+    bn = 64 if co <= 64 else 128
+    taps = 3 if bn == 64 else 1
+    return 2 * (F32_DEPTH * (256 + 4) + taps * F32_DEPTH * bn) * 4
+
+
 def fwd_route(dtype: torch.dtype, c: int, co: int,
               aligned: bool = True) -> str:
     """The kernel that computes the forward of C -> Co channels on the
@@ -232,8 +258,8 @@ def split_plan(route: str, pixels: int, c: int,
                co: int) -> tuple[int, int]:
     """(splits, pixels per split) of ``route``'s reduction over ``pixels``
     = N*H*W output pixels of C -> Co channels (see WAVE_BLOCKS)."""
-    if route == "wgmma":
-        tiles = 3 * -(-c // WGMMA_ROWS) * -(-co // WGMMA_COLS)
+    if route in ("wgmma", "fp32"):
+        tiles = 3 * -(-c // TILE_ROWS) * -(-co // TILE_COLS)
         per = -(-pixels // -(-WAVE_BLOCKS // tiles))
     else:
         per = max(MIN_SPLIT_PIXELS, -(-pixels // MAX_SPLITS))

@@ -3,15 +3,19 @@
 BN warmup, then the epoch loop: each step trains on the current
 self-labels, and on the power-law schedule ``maybe_cluster`` re-labels the
 dataset with Sinkhorn-Knopp (``selflabel/engine.py::cluster``). Loss is
-logged every 50 iterations. Checkpoints, resume, preemption, the host-RSS
-watchdog, multi-device meshes and data echo are not ported yet: a flag that
-asks for one of them (``UNPORTED_FLAGS``) makes the Trainer raise rather
-than train something other than what the JAX Trainer would.
+logged every 50 iterations, and an epoch returns the JAX Trainer's
+``AverageMeter`` mean of those losses. Checkpoints, resume, preemption, the
+host-RSS watchdog, multi-device meshes and data echo are not ported yet: a
+flag that asks for one of them (``UNPORTED_FLAGS``) makes the Trainer raise
+rather than train something other than what the JAX Trainer would, and
+``fit`` refuses a dump path that holds a checkpoint the JAX Trainer would
+resume from.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import time
 
 import numpy as np
@@ -30,24 +34,28 @@ from selavi_tpu_torch.train.optim import make_optimizer, set_lr, warmup_lr
 logger = logging.getLogger(__name__)
 
 LOG_EVERY = 50
+# The JAX Trainer's checkpoint file in --dump_path
+# (selavi_tpu/train/checkpoint.py::CKPT_NAME).
+CKPT_NAME = "checkpoint.msgpack"
+CHECKPOINT_ITEM = "1 (checkpoints, resume and CLI)"
 
 # Flags that the JAX Trainer, its dataset factory or its CLI read and this
 # Trainer does not implement: flag -> (default, the ROADMAP Queue 1 item
 # that ports it). Any other value raises NotImplementedError.
 UNPORTED_FLAGS = {
-    "device_spectrogram": (False, "1 (device audio frontend)"),
-    "worker_mode": ("thread", "2 (loader: process workers, data echo)"),
-    "data_echo": (1, "2 (loader: process workers, data echo)"),
-    "dual_data": (False, "3 (dual_data)"),
-    "resume": (False, "5 (checkpoints, resume and CLI)"),
-    "checkpoint_freq": (5, "5 (checkpoints, resume and CLI)"),
-    "async_checkpoint": (True, "5 (checkpoints, resume and CLI)"),
-    "dump_path": (".", "5 (checkpoints, resume and CLI)"),
-    "max_host_mem_gb": (0, "5 (checkpoints, resume and CLI)"),
-    "trace_profile": (False, "5 (checkpoints, resume and CLI)"),
-    "sk_cache_batches": (False, "6 (SK phase: native matcher, cached "
-                                "aggregation batches)"),
-    "model_axis": (1, "8 (multi-GPU)"),
+    "device_spectrogram": (False, "5 (device audio frontend)"),
+    "worker_mode": ("thread", "6 (loader: wire format, process workers, "
+                              "data echo)"),
+    "data_echo": (1, "6 (loader: wire format, process workers, data echo)"),
+    "dual_data": (False, "7 (dual_data)"),
+    "resume": (False, CHECKPOINT_ITEM),
+    "checkpoint_freq": (5, CHECKPOINT_ITEM),
+    "async_checkpoint": (True, CHECKPOINT_ITEM),
+    "dump_path": (".", CHECKPOINT_ITEM),
+    "max_host_mem_gb": (0, CHECKPOINT_ITEM),
+    "trace_profile": (False, CHECKPOINT_ITEM),
+    "sk_cache_batches": (False, "9 (SK phase: cached aggregation batches)"),
+    "model_axis": (1, "11 (multi-GPU)"),
 }
 
 
@@ -210,6 +218,10 @@ class Trainer:
         labels_dev = torch.from_numpy(self.selflabels).to(self.device)
         end = time.time()
         metrics = None
+        # The JAX Trainer's epoch loss: an AverageMeter over the losses read
+        # at the LOG_EVERY cadence, each weighted by its batch, and the last
+        # step's loss with weight 1.
+        loss_sum, loss_weight = 0.0, 0
         for it, batch in enumerate(self.loader):
             if self.maybe_cluster(batches_thusfar + it):
                 labels_dev = torch.from_numpy(self.selflabels).to(self.device)
@@ -217,14 +229,32 @@ class Trainer:
                                       self.step_gen)
             if it % LOG_EVERY == 0:
                 loss = float(metrics["loss"])  # syncs only at this cadence
+                loss_sum += loss * batch["video"].shape[0]
+                loss_weight += batch["video"].shape[0]
                 self.history.append({"epoch": epoch, "iter": it,
                                      "loss": loss})
                 logger.info("Epoch: [%d][%d]\tTime %.3f\tLoss %.4f", epoch,
                             it, time.time() - end, loss)
                 end = time.time()
-        return float(metrics["loss"])
+        loss_sum += float(metrics["loss"])
+        loss_weight += 1
+        return loss_sum / loss_weight
 
     def fit(self) -> list[dict]:
+        """BN warmup, then every epoch. The JAX Trainer resumes from
+        ``{dump_path}/checkpoint.msgpack`` and writes one after each epoch;
+        this one does neither, so it raises rather than restart from epoch
+        0 over a checkpoint that the JAX Trainer would resume from."""
+        checkpoint = os.path.join(self.args.dump_path, CKPT_NAME)
+        if os.path.exists(checkpoint):
+            raise NotImplementedError(
+                f"{checkpoint} exists: the JAX Trainer would resume from it, "
+                f"and the port's Trainer does not implement resuming (ROADMAP "
+                f"Queue 1 item {CHECKPOINT_ITEM})")
+        logger.warning(
+            "the port's Trainer writes no checkpoint (the JAX Trainer writes "
+            "%s after every epoch; ROADMAP Queue 1 item %s)", checkpoint,
+            CHECKPOINT_ITEM)
         self.warmup_batchnorm()
         for epoch in range(self.args.epochs):
             logger.info("============ Starting epoch %i ============", epoch)

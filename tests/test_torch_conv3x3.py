@@ -20,7 +20,11 @@ import pytest
 import torch
 
 from selavi_tpu_torch.experiments import conv3x3 as probe
-from selavi_tpu_torch.experiments import fwd_ablation, wgrad_ablation
+from selavi_tpu_torch.experiments import (
+    f32_ablation,
+    fwd_ablation,
+    wgrad_ablation,
+)
 from selavi_tpu_torch.ops import conv3x3 as ops
 
 torch.set_num_threads(1)
@@ -135,7 +139,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         ops.conv3x3(x.to("meta"), w.to("meta"))  # neither CPU nor CUDA
     with pytest.raises(ValueError):
         ops._check_index_range(2 ** 16, 2 ** 8, 2 ** 4, 64, 128)
-    assert ops.split_plan("fp32", 480 * 56 * 56, 64, 128) == (256, 5888)
+    assert ops.split_plan("fp32", 480 * 56 * 56, 64, 128) == (44, 34240)
     assert ops.split_plan("wmma", 8 * 16, 8, 16) == (1, 256)
 
 
@@ -159,7 +163,7 @@ def test_split_plan_covers_every_pixel_once(route, shape):
     assert 1 <= splits <= 65535  # a grid dimension of the launch
     assert per * splits < ops.INT32_LIMIT
     assert ops.split_plan(route, pixels, c, co) == (splits, per)
-    if route == "wgmma":
+    if route in ("wgmma", "fp32"):  # one block on each SM
         tiles = 3 * -(-c // 64) * -(-co // 128)
         assert tiles * splits <= max(ops.WAVE_BLOCKS, tiles)
 
@@ -168,8 +172,11 @@ def test_split_plan_fills_one_wave_at_the_bench_shape():
     n, h, wd, c, co = probe.BENCH_SHAPE
     assert ops.split_plan("wgmma", n * h * wd, c, co) == (44, 34240)
     assert 3 * 44 == ops.WAVE_BLOCKS  # one block per SM of the H100
-    # fp32 keeps the plan of at most MAX_SPLITS ranges
-    assert ops.split_plan("fp32", n * h * wd, c, co) == (256, 5888)
+    # fp32: the same blocks (dy, 64 channels, 128 output channels), one
+    # on each SM
+    assert ops.split_plan("fp32", n * h * wd, c, co) == (44, 34240)
+    # the wmma route keeps the plan of at most MAX_SPLITS ranges
+    assert ops.split_plan("wmma", n * h * wd, c, co) == (256, 5888)
 
 
 @pytest.mark.parametrize("dtype, shape, aligned, route", [
@@ -347,3 +354,140 @@ def test_fwd_ablation_without_a_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError):
         fwd_ablation.main()
+
+
+def _f32_wgrad_model(x, g, per):
+    """The fp32 weight gradient's data path in numpy: pixel ranges of
+    ``per``; for each range, tap row dy and 32-pixel slice a halo of 34
+    flat pixel rows (the slice's pixels - 1 .. + 32) of x shifted by dy rows,
+    zero where that shift leaves the image or outside [0, M); g zero past
+    the range; pixel r takes tap (dy, dx) from halo row r + dx, or zeros
+    where r starts (dx = 0) or ends (dx = 2) its image row."""
+    n, h, wd, c = x.shape
+    co = g.shape[3]
+    m = n * h * wd
+    xf = x.reshape(m, c).astype(np.float64)
+    gf = g.reshape(m, co).astype(np.float64)
+    out = np.zeros((3, 3, c, co))
+    rows = np.arange(32)
+    for pb in range(0, m, per):
+        pe = min(m, pb + per)
+        for dy in range(3):
+            for ps in range(pb, pe, 32):
+                q = ps - 1 + np.arange(34)
+                hq = q // wd % h  # pixel -1: the last row of an image
+                inside = ((q >= 0) & (q < m) & (hq + dy - 1 >= 0)
+                          & (hq + dy - 1 < h))
+                src = np.clip(q + (dy - 1) * wd, 0, m - 1)
+                halo = np.where(inside[:, None], xf[src], 0.0)
+                p = ps + rows
+                gt = np.where((p < pe)[:, None], gf[np.clip(p, 0, m - 1)],
+                              0.0)
+                pw = p % wd
+                for dx in range(3):
+                    a = halo[rows + dx]
+                    if dx == 0:
+                        a = np.where((pw == 0)[:, None], 0.0, a)
+                    if dx == 2:
+                        a = np.where((pw == wd - 1)[:, None], 0.0, a)
+                    out[dy, dx] += a.T @ gt
+    return out
+
+
+# (N, H, W, C, Co): images smaller than a slice (9 pixels: one slice spans
+# several, every dy border inside it), rows longer than a slice (W = 70),
+# C = 72 (ragged, two channel blocks), one pixel, and 231 pixels (not a
+# multiple of the 32-pixel slice); each with the split plan of the fp32
+# route and with ranges of 64 pixels (several splits, slices that start
+# mid-row).
+@pytest.mark.parametrize("per", [None, 64], ids=["plan", "per64"])
+@pytest.mark.parametrize("shape", [(5, 3, 3, 8, 16), (1, 2, 70, 8, 8),
+                                   (2, 5, 7, 72, 16), (1, 1, 1, 8, 8),
+                                   (3, 7, 11, 16, 8)], ids=str)
+def test_halo_model_of_the_f32_weight_gradient_is_the_wgrad(shape, per):
+    x, _, g = _inputs(*shape)
+    n, h, wd, c, co = shape
+    if per is None:
+        _, per = ops.split_plan("fp32", n * h * wd, c, co)
+    ref = ops.conv3x3_wgrad_plain(torch.from_numpy(x), torch.from_numpy(g))
+    assert _rel_err(_f32_wgrad_model(x, g, per), ref.numpy()) < RTOL
+
+
+def _f32_fwd_model(x, w, bm):
+    """The fp32 halo forward's data path (the tile for Co <= 64, which the
+    dgrad of the bench shape takes) in numpy: tiles of ``bm`` pixels; for
+    each tap row dy a halo of bm + 2 flat pixel rows (the tile's pixels
+    - 1 .. + bm) of x shifted by dy rows, zero where that shift leaves the
+    image or outside [0, M); pixel r of the tile takes tap (dy, dx) from
+    halo row r + dx, or zeros where it starts (dx = 0) or ends (dx = 2) its
+    image row."""
+    n, h, wd, c = x.shape
+    co = w.shape[3]
+    m = n * h * wd
+    xf = x.reshape(m, c).astype(np.float64)
+    y = np.zeros((m, co))
+    rows = np.arange(bm)
+    for m0 in range(0, m, bm):
+        p = m0 + rows
+        pw = p % wd
+        tile = np.zeros((bm, co))
+        for dy in range(3):
+            q = m0 - 1 + np.arange(bm + 2)
+            hq = q // wd % h
+            inside = ((q >= 0) & (q < m) & (hq + dy - 1 >= 0)
+                      & (hq + dy - 1 < h))
+            src = np.clip(q + (dy - 1) * wd, 0, m - 1)
+            halo = np.where(inside[:, None], xf[src], 0.0)
+            for dx in range(3):
+                a = halo[rows + dx]
+                if dx == 0:
+                    a = np.where((pw == 0)[:, None], 0.0, a)
+                if dx == 2:
+                    a = np.where((pw == wd - 1)[:, None], 0.0, a)
+                tile += a @ w[dy, dx]
+        keep = p < m
+        y[p[keep]] = tile[keep]
+    return y.reshape(n, h, wd, co)
+
+
+# The shapes of the weight gradient's model; each with the kernel's
+# 256-pixel tile and with 8-pixel tiles (many tiles, tiles that start and
+# end mid-row).
+@pytest.mark.parametrize("bm", [256, 8])
+@pytest.mark.parametrize("shape", [(5, 3, 3, 8, 16), (1, 2, 70, 8, 8),
+                                   (2, 5, 7, 72, 16), (1, 1, 1, 8, 8),
+                                   (3, 7, 11, 16, 8)], ids=str)
+def test_halo_model_of_the_f32_forward_is_the_conv(shape, bm):
+    x, w, _ = _inputs(*shape)
+    ref = ops.conv3x3_plain(torch.from_numpy(x), torch.from_numpy(w))
+    assert _rel_err(_f32_fwd_model(x, w, bm), ref.numpy()) < RTOL
+
+
+def test_f32_shared_memory_plan_at_the_bench_shapes():
+    # forward (Co = 128): 2 stages of A 32 x (256 + 4) and B 32 x 128
+    # floats; dgrad (Co = 64): 2 stages of a halo tile 32 x (256 + 4) and B
+    # 3 x 32 x 64;
+    # weight gradient: 6 stages of a 34 x 64 halo and a 32 x 128 g tile + a
+    # zero row of 64 floats. Each within the 232,448 bytes a block may have.
+    fwd = ops.f32_smem_bytes("forward", 128)
+    dgrad = ops.f32_smem_bytes("forward", 64)
+    wgrad = ops.f32_smem_bytes("wgrad")
+    assert fwd == 2 * (32 * 260 + 32 * 128) * 4 == 99328
+    assert dgrad == 2 * (32 * 260 + 3 * 32 * 64) * 4 == 115712
+    assert wgrad == 6 * (34 * 64 + 32 * 128) * 4 + 256 == 150784
+    assert max(fwd, dgrad, wgrad) <= ops.FWD_SMEM_LIMIT
+    assert ops.f32_smem_bytes("forward", 65) == fwd
+
+
+@pytest.mark.parametrize("variant", list(f32_ablation.VARIANTS))
+def test_f32_ablation_edits_match_the_source(variant):
+    """Each edit finds its text: once, or in both fp32 forward kernels."""
+    text = ops.SOURCE.read_text()
+    for old, _ in f32_ablation.VARIANTS[variant]:
+        assert text.count(old) in (1, 2), old
+
+
+def test_f32_ablation_without_a_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        f32_ablation.main()

@@ -1,7 +1,9 @@
 """The port's slice as a whole, on the CPU: the Trainer's fit() with BN
 warmup, one SK re-clustering (with modality matching) and an epoch of
-train steps; plus import hygiene and the no-silent-CPU rule."""
+train steps; the epoch loss and the checkpoint refusal against the JAX
+Trainer's; plus import hygiene and the no-silent-CPU rule."""
 
+import logging
 import pkgutil
 import subprocess
 import sys
@@ -15,6 +17,8 @@ from selavi_tpu_torch.config import parse_arguments
 from selavi_tpu_torch.data.synthetic import SyntheticAVDataset
 from selavi_tpu_torch.models.av_model import load_model
 from selavi_tpu_torch.ops import sinkhorn_fused
+from selavi_tpu.utils.meters import AverageMeter
+from selavi_tpu_torch.train import loop
 from selavi_tpu_torch.train.loop import UNPORTED_FLAGS, Trainer
 
 torch.set_num_threads(1)
@@ -47,7 +51,8 @@ def test_synthetic_example_layout():
     assert ex["index"] == 3 and ex["label"] == ds.labels[3]
 
 
-def test_trainer_fit_runs_the_slice_on_cpu():
+def test_trainer_fit_runs_the_slice_on_cpu(monkeypatch, tmp_path):
+    monkeypatch.chdir(tmp_path)  # fit() reads the default --dump_path "."
     args = parse_arguments().parse_args(TINY.split())
     sinkhorn_fused.reset_launches()
     trainer = Trainer(args, _dataset(args), device="cpu")
@@ -87,6 +92,69 @@ def test_trainer_refuses_unported_flags(flag):
     with pytest.raises(NotImplementedError,
                        match=f"--{flag} .*ROADMAP Queue 1 item"):
         Trainer(args, _dataset(args), device="cpu")
+
+
+def _scripted_trainer(monkeypatch, losses):
+    """A TINY Trainer whose train_step returns ``losses`` in turn and whose
+    SK schedule never fires; records the batch size of each step."""
+    args = parse_arguments().parse_args(TINY.split())
+    trainer = Trainer(args, _dataset(args), device="cpu")
+    script = iter(losses)
+    sizes = []
+
+    def train_step(batch, labels, gen):
+        sizes.append(batch["video"].shape[0])
+        return {"loss": torch.tensor(next(script))}
+
+    monkeypatch.setattr(trainer, "train_step", train_step)
+    monkeypatch.setattr(trainer, "maybe_cluster", lambda iteration: False)
+    return trainer, sizes
+
+
+def test_epoch_loss_is_the_jax_average_meter(monkeypatch):
+    # Log every 2 iterations, so the TINY epoch's 4 steps sample 2 losses.
+    monkeypatch.setattr(loop, "LOG_EVERY", 2)
+    losses = [2.5, 1.25, 0.75, 3.0]
+    trainer, sizes = _scripted_trainer(monkeypatch, losses)
+    assert trainer.batches_per_epoch == len(losses)
+    got = trainer.train_epoch(0)
+
+    # selavi_tpu/train/loop.py::train_epoch: each loss read at the logging
+    # cadence with weight batch["video"].shape[0], then the last with 1.
+    meter = AverageMeter()
+    for it, (loss, size) in enumerate(zip(losses, sizes)):
+        if it % 2 == 0:
+            meter.update(loss, size)
+    meter.update(losses[-1], 1)
+    assert sizes == [4] * 4
+    assert got == pytest.approx(meter.avg, rel=1e-12)
+    assert got != pytest.approx(losses[-1])  # not the last step's loss
+    # the per-iteration history that chip_smoke.py reads
+    assert [(h["iter"], h["loss"]) for h in trainer.history] == [
+        (0, 2.5), (2, 0.75)]
+
+
+def test_fit_refuses_a_dump_path_with_a_checkpoint(monkeypatch, tmp_path):
+    monkeypatch.chdir(tmp_path)  # the default --dump_path is "."
+    (tmp_path / loop.CKPT_NAME).write_bytes(b"")
+    trainer, sizes = _scripted_trainer(monkeypatch, [1.0] * 4)
+    monkeypatch.setattr(trainer, "warmup_batchnorm", lambda: sizes.append(0))
+    with pytest.raises(NotImplementedError,
+                       match=r"checkpoint\.msgpack.*ROADMAP Queue 1 item 1"):
+        trainer.fit()
+    assert sizes == [] and trainer.history == []  # before any training
+
+
+def test_fit_logs_that_it_writes_no_checkpoint(monkeypatch, tmp_path, caplog):
+    monkeypatch.chdir(tmp_path)
+    trainer, sizes = _scripted_trainer(monkeypatch, [1.5, 0.5, 1.0, 2.0])
+    monkeypatch.setattr(trainer, "warmup_batchnorm", lambda: None)
+    with caplog.at_level(logging.WARNING, logger=loop.__name__):
+        history = trainer.fit()
+    warnings = [r for r in caplog.records if r.levelno == logging.WARNING]
+    assert len(warnings) == 1 and "writes no checkpoint" in warnings[0].message
+    assert list(tmp_path.iterdir()) == []  # nothing written
+    assert history[-1] == {"epoch": 0, "loss": (1.5 * 4 + 2.0) / 5}
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
