@@ -18,8 +18,13 @@ just after each:
   and ``bench()``, which run the conv3x3 forward, dgrad and wgrad kernels
   and time them beside cuDNN at R(2+1)D layer1's shape (all three bf16
   kernels there on their wgmma routes; the per-route counts show it).
-Then it times the SK kernel and the train step. Every phase raises on
-failure, so any failure exits non-zero. Standard output ends with a line
+Then it times the SK kernel and the train step. For the SK kernel it also
+holds the library's tiling (``sk_plan``) against ``plan()`` at every shape
+it compares, checks that an M off a 16-byte boundary is refused and that
+the solver and the main path launch the kernel once an iteration, and
+prints the kernel's registers and spills, its grid, the host's time to
+enqueue an iteration and the solver's it/s at paper scale in fp32 and
+bf16. Every phase raises on failure, so any failure exits non-zero. Standard output ends with a line
 ``{"kernels": [...]}`` and then the result line ``{"ok": true, "device":
 {...}}``; logs go to standard error.
 
@@ -48,6 +53,15 @@ MAIN_ARGS = (
     "--workers 8 --base_lr 0.01 --wd 0.00001 --seed 31"
 )
 PAPER_N, PAPER_K = 170752, 309  # VGG-Sound SK scale
+# Kernel vs plain: the main path's N=480, the paper scale, and the edges of
+# the kernel's tiling (32-row tiles bulk-copied by the 16 bytes): an
+# unaligned K (37) with a tail whose bytes are no multiple of 16 (301 rows,
+# 13 in the last tile), one row, less than one tile (7 rows), K = 1 (one
+# live lane) and K = 512 (the widest, 16 columns a lane, 3 ring stages in
+# fp32).
+SK_SHAPES = ((300, 37), (480, 309), (1, PAPER_K), (7, PAPER_K), (301, 37),
+             (480, 1), (480, 512), (PAPER_N, PAPER_K))
+HOST_REPS = 200  # iterations enqueued to time the host's part of one
 # Kernel vs plain: same fp32 arithmetic, sums in another order (per-warp
 # online LSE merged across blocks vs torch's reductions).
 VEC_RTOL = 1e-5  # of max |ref|, on log_alpha_next and log_beta_new
@@ -122,15 +136,21 @@ def numpy_sk_instance(torch, n, k, seed, device):
 
 
 def kernel_vs_plain(torch, sf, device, report):
-    """Phase 2a: the kernel against its plain version on the card."""
+    """Phase 2a: the kernel against its plain version on the card, and the
+    library's tiling against ``plan()``."""
     worst = 0.0
     inputs = {}
-    for n, k in ((300, 37), (480, 309), (PAPER_N, PAPER_K)):
+    sms = sf.sm_count(device.index)
+    for n, k in SK_SHAPES:
         log_ps, log_r = sk_instance(torch, n, k, seed=n, device=device)
         m32 = (10.0 * log_ps).contiguous()
         log_beta = torch.full((n,), -math.log(n), device=device)
         log_alpha = log_r - torch.logsumexp(m32 + log_beta[:, None], 0)
         for m in (m32, m32.to(torch.bfloat16)):
+            plan = sf.plan(n, k, m.dtype, sms)
+            check(sf.library_plan(n, k, m.dtype, sms) == plan,
+                  f"the library's plan at {n}x{k} {m.dtype}: "
+                  f"{sf.library_plan(n, k, m.dtype, sms)} vs {plan}")
             args = (m, log_alpha, log_beta, log_r)
             a1, b1, e1 = sf.fused_sk_iteration(*args)
             a0, b0, e0 = sf.fused_sk_iteration_plain(*args)
@@ -154,11 +174,33 @@ def kernel_vs_plain(torch, sf, device, report):
             check(deterministic, f"kernel determinism {n}x{k}")
             worst = max(worst, da, db)
             inputs[(n, k, m.dtype)] = args
+    # An M that does not start on a 16-byte boundary is refused.
+    flat = torch.zeros(1 + 300 * 37, device=device)
+    vecs = inputs[(300, 37, torch.float32)][1:]
+    try:
+        sf.fused_sk_iteration(flat[1:].view(300, 37), *vecs)
+        refused = False
+    except ValueError:
+        refused = True
+    print(f"kernel refuses an M at a 4-byte offset: {refused}", flush=True)
+    check(refused, "a misaligned M is refused")
+    lib = sf._library()
+    for dtype in (torch.float32, torch.bfloat16):
+        p = sf.plan(PAPER_N, PAPER_K, dtype, sms)
+        info = sf.kernel_info(PAPER_K, dtype)
+        print(f"fused SK kernel at K={PAPER_K} {str(dtype)[6:]}: "
+              f"{info['registers']} registers, {info['local_bytes']} bytes "
+              f"of local memory (spills), grid {p.grid} of {sms} SMs, "
+              f"{p.stages} stages of {p.stage_bytes} bytes, "
+              f"{p.smem_bytes} bytes of shared memory, "
+              f"{lib.sk_launches_per_iteration()} launch(es) per iteration",
+              flush=True)
+        report[f"sk_info_{str(dtype)[6:]}"] = info
     report["max_abs_err"] = worst
     return inputs
 
 
-def solver_fused_vs_plain(torch, device, report):
+def solver_fused_vs_plain(torch, sf, device, report):
     """Phase 2b: the SK solver on the fused backend against plain, on CUDA."""
     from selavi_tpu_torch.selflabel.sinkhorn import sinkhorn_knopp
 
@@ -173,11 +215,14 @@ def solver_fused_vs_plain(torch, device, report):
 
     log_ps, log_r = sk_instance(torch, PAPER_N, PAPER_K, seed=7,
                                 device=device)
+    sinkhorn_knopp(log_ps[:480], log_r, backend="fused")  # warm-up
     torch.cuda.synchronize()
+    sf.reset_launches()
     t0 = time.perf_counter()
     fused = sinkhorn_knopp(log_ps, log_r, backend="fused")
     torch.cuda.synchronize()
     t_fused = time.perf_counter() - t0
+    check(sf.launches == fused.iters, "one kernel launch per iteration")
     t0 = time.perf_counter()
     plain = sinkhorn_knopp(log_ps, log_r, backend="plain")
     torch.cuda.synchronize()
@@ -191,6 +236,13 @@ def solver_fused_vs_plain(torch, device, report):
     check(agree >= 0.999, "paper-scale label agreement >= 99.9%")
     check(abs(fused.iters - plain.iters) <= 10, "paper-scale iters within 10")
     report["solver_it_per_s"] = fused.iters / t_fused
+    t0 = time.perf_counter()
+    fused16 = sinkhorn_knopp(log_ps, log_r, backend="fused", m_bf16=True)
+    torch.cuda.synchronize()
+    t_bf16 = time.perf_counter() - t0
+    report["solver_it_per_s_bf16"] = fused16.iters / t_bf16
+    print(f"solver {PAPER_N}x{PAPER_K} bf16: fused {fused16.iters} iters in "
+          f"{t_bf16:.3f} s ({fused16.iters / t_bf16:.1f} it/s)", flush=True)
 
 
 def main_path(torch, sf, device, report):
@@ -234,6 +286,9 @@ def main_path(torch, sf, device, report):
     check(all(len(set(labels[:, h].tolist())) > 1
               for h in range(args.headcount)), "every head uses >1 cluster")
     check(launches > 0, "the main path launched the fused SK kernel")
+    check(launches == sk[0]["sk_iters_total"],
+          f"one fused SK launch per solver iteration: {launches} launches, "
+          f"{sk[0]['sk_iters_total']} iterations")
     return trainer
 
 
@@ -422,7 +477,7 @@ def main() -> int:
 
     report: dict = {}
     inputs = kernel_vs_plain(torch, sf, device, report)
-    solver_fused_vs_plain(torch, device, report)
+    solver_fused_vs_plain(torch, sf, device, report)
     conv_kernels_vs_plain(torch, conv, device, report)
     trainer = main_path(torch, sf, device, report)
     conv_probe_path(torch, conv, measure, device, report)
@@ -433,12 +488,17 @@ def main() -> int:
     for dtype in (torch.float32, torch.bfloat16):
         args = inputs[(PAPER_N, PAPER_K, dtype)]
         m = args[0]
+        # As the solver calls it: outputs and scratch made once.
+        out = (torch.empty_like(args[1]), torch.empty_like(args[2]),
+               torch.empty((), device=device))
+        ws = sf.make_workspace(m)
         nbytes = (m.numel() * m.element_size() + 2 * 4 * PAPER_N
                   + 3 * 4 * PAPER_K + 4)
         bytes_ms = nbytes / bw * 1e3
         ops_ms = OPS_PER_ELEMENT * m.numel() / measure.FP32_PEAK_FLOPS * 1e3
         times[dtype] = {
-            "ms": measure.cuda_ms(lambda: sf.fused_sk_iteration(*args)),
+            "ms": measure.cuda_ms(lambda: sf.fused_sk_iteration(
+                *args, out=out, workspace=ws)),
             "plain_ms": measure.cuda_ms(
                 lambda: sf.fused_sk_iteration_plain(*args), reps=20),
             "bound_ms": max(bytes_ms, ops_ms),
@@ -453,8 +513,22 @@ def main() -> int:
               f"{t['bound_ms'] / t['ms'] * 100:.1f}% of bound; no single "
               f"PyTorch call computes this iteration (library_ms null)",
               flush=True)
-    print(f"SK solver {PAPER_N}x{PAPER_K} fp32 fused on {card}: "
-          f"{report['solver_it_per_s']:.1f} it/s", flush=True)
+        # The host's part of an iteration: enqueueing runs ahead of the
+        # card, which takes longer for each.
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(HOST_REPS):
+            sf.fused_sk_iteration(*args, out=out, workspace=ws)
+        t["host_us"] = (time.perf_counter() - t0) / HOST_REPS * 1e6
+        torch.cuda.synchronize()
+        print(f"fused SK iteration {PAPER_N}x{PAPER_K} {str(dtype)[6:]}: "
+              f"{t['host_us']:.2f} us of host time to enqueue one",
+              flush=True)
+    print(f"SK solver {PAPER_N}x{PAPER_K} fused on {card}: fp32 "
+          f"{report['solver_it_per_s']:.1f} it/s, bf16 "
+          f"{report['solver_it_per_s_bf16']:.1f} it/s; kernel bf16/fp32 "
+          f"{times[torch.bfloat16]['ms'] / times[torch.float32]['ms']:.3f}",
+          flush=True)
 
     time_train(torch, trainer, report)
     print(f"train on {card}: {report['train_clips_per_s']:.2f} clips/s "

@@ -1,8 +1,9 @@
 """CLI flag surface: the port's copy of ``selavi_tpu/config.py``.
 
 The port's Trainer reads the same ``args`` namespace as the JAX package's,
-so recipes carry over. Only ``--sk_backend`` differs: its choices name the
-port's solver backends. Flags for paths the port does not run yet (mesh,
+so recipes carry over. ``--sk_backend`` also takes the port's own names
+(``fused``, ``plain``) beside the JAX ones (``pallas``, ``xla``), which
+mean the same backends here. Flags for paths the port does not run yet (mesh,
 device spectrogram, checkpoints, YUV wire format) are kept so that one
 command line serves both packages.
 """
@@ -185,16 +186,21 @@ def parse_arguments() -> argparse.ArgumentParser:
                              "log-filterbank spectrograms there (fused "
                              "gather+FFT+mel kernel) instead of on host")
     parser.add_argument("--trace_profile", type="bool", default="False",
-                        help="capture a jax.profiler trace of epoch 0 "
-                             "into {dump_path}/profile")
+                        help="capture a profiler trace of epoch 0 into "
+                             "{dump_path}/profile (not implemented in the "
+                             "port yet: the Trainer refuses it)")
     parser.add_argument("--sk_backend", type=str, default="auto",
-                        choices=["auto", "plain", "fused"],
+                        choices=["auto", "plain", "fused", "xla", "pallas"],
                         help="Sinkhorn solver backend (auto = the fused "
                              "CUDA kernel for CUDA tensors, plain torch on "
-                             "the CPU)")
+                             "the CPU; the JAX names xla and pallas mean "
+                             "plain and fused)")
     parser.add_argument("--sk_bf16", type="bool", default="False",
-                        help="bf16 storage of the SK matrix (1.6x solver "
-                             "speed, trades label bit-parity; fp32 default)")
+                        help="bf16 storage of the SK matrix (half the "
+                             "bytes; the fused iteration 1.3x as fast as "
+                             "fp32 at 170752x309 on an NVIDIA H100 80GB "
+                             "HBM3, see PERF.md; trades label bit-parity; "
+                             "fp32 default)")
     parser.add_argument("--async_checkpoint", type="bool", default="True",
                         help="serialize + write checkpoints on a background "
                              "thread (the step loop continues immediately); "

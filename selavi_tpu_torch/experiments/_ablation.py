@@ -1,6 +1,8 @@
-"""What the kernel ablations share: ``ptxas -v`` reports of
-``csrc/conv3x3.cu`` and builds of its variants (the source with a few lines
-edited), loaded in place of the library for a ``with using(lib):`` block.
+"""What the kernel ablations share: ``ptxas -v`` reports of a kernel source
+(``csrc/conv3x3.cu`` unless another is named) and builds of its variants
+(the source with a few lines edited), loaded in place of the library of
+its wrapper module (``ops.conv3x3`` unless another is named) for a
+``with using(lib):`` block.
 """
 
 from __future__ import annotations
@@ -40,25 +42,27 @@ def ptxas_report(kernel: str, source=None) -> str:
                                   for line in lines[i:i + 4]])
 
 
-def build_variant(name: str, edits):
-    """``csrc/conv3x3.cu`` with the (text, replacement) ``edits`` of variant
-    ``name``, built and loaded."""
-    text = conv.SOURCE.read_text()
+def build_variant(name: str, edits, ops=conv):
+    """The source of wrapper module ``ops`` (``ops.SOURCE``) with the (text,
+    replacement) ``edits`` of variant ``name``, built and loaded by
+    ``ops.load_library``."""
+    text = ops.SOURCE.read_text()
     for old, new in edits:
         if old not in text:
             raise RuntimeError(f"variant {name}: {old!r} is not in "
-                               f"{conv.SOURCE.name}")
+                               f"{ops.SOURCE.name}")
         text = text.replace(old, new)
-    source = _build.BUILD_DIR / "ablation" / f"conv3x3_{name}.cu"
+    source = _build.BUILD_DIR / "ablation" / f"{ops.SOURCE.stem}_{name}.cu"
     source.parent.mkdir(parents=True, exist_ok=True)
     source.write_text(text)
-    return conv.load_library(_build.build_library(source))
+    return ops.load_library(_build.build_library(source))
 
 
 @contextlib.contextmanager
-def using(lib):
-    saved, conv._lib = conv._lib, lib
+def using(lib, ops=conv):
+    """Wrapper module ``ops`` launches through ``lib`` inside the block."""
+    saved, ops._lib = ops._lib, lib
     try:
         yield
     finally:
-        conv._lib = saved
+        ops._lib = saved

@@ -44,7 +44,7 @@ class SKConfig:
     diff_dist_per_head: bool = True
     sk_tol: float = 1e-1
     sk_max_iters: int = 2000
-    sk_backend: str = "auto"  # 'auto' | 'fused' | 'plain'
+    sk_backend: str = "auto"  # 'auto' | 'fused' | 'plain' (JAX: 'pallas' | 'xla')
     sk_m_bf16: bool = False  # bf16 storage of M (half the solver's bytes)
     feat_dim: int = 512  # video GAP width
     feat_dim_a: Optional[int] = None  # audio GAP width; None -> feat_dim
@@ -201,6 +201,7 @@ def cluster(
     metrics = {
         "sk_cost": float(np.mean(costs)),
         "sk_iters_max": int(max(iters)),
+        "sk_iters_total": int(sum(iters)),  # the solves' iterations
         "sk_time": time.time() - t_start,
         "nmi_vs_old": normalized_mutual_info(new_labels[:, 0],
                                              old_labels[:, 0]),

@@ -19,10 +19,16 @@ Backends:
   ``ops.sinkhorn_fused.fused_sk_iteration`` (the CUDA kernel for a CUDA M,
   its plain version for a CPU M). Its alpha runs a half-step ahead of the
   beta chain, so the loop carries the previous alpha and the labels pair
-  with the same alpha as the plain backend: labels and iters match.
+  with the same alpha as the plain backend: labels and iters match. The
+  solve allocates the kernel's outputs and scratch once: alpha and beta
+  each ping-pong between two buffers, on the CPU too (where the plain
+  version writes into them).
 * ``"plain"``: the two-sweep loop in plain torch (``expm1`` error term).
 * ``"auto"``: ``"fused"`` for a CUDA M, ``"plain"`` on the CPU. There is no
   fallback from the kernel on CUDA.
+
+The JAX package's names ``"pallas"`` and ``"xla"`` are taken as
+``"fused"`` and ``"plain"``.
 """
 
 from __future__ import annotations
@@ -33,10 +39,14 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from selavi_tpu_torch.ops.sinkhorn_fused import fused_sk_iteration
+from selavi_tpu_torch.ops.sinkhorn_fused import (
+    fused_sk_iteration,
+    make_workspace,
+)
 
 CHECK_EVERY = 10  # iterations between error checks (reference rule)
 STALL_WINDOW = 8  # checks per no-net-improvement window
+BACKEND_ALIASES = {"pallas": "fused", "xla": "plain"}  # the JAX names
 
 
 class SinkhornResult(NamedTuple):
@@ -47,6 +57,7 @@ class SinkhornResult(NamedTuple):
 
 
 def resolve_backend(backend: str, device: torch.device) -> str:
+    backend = BACKEND_ALIASES.get(backend, backend)
     if backend == "auto":
         return "fused" if device.type == "cuda" else "plain"
     if backend not in ("fused", "plain"):
@@ -112,12 +123,21 @@ def sinkhorn_knopp(
     log_beta = log_c.expand(n).clone()
     log_alpha = log_r - torch.logsumexp(m + log_beta[:, None], dim=0)
     alpha_used = log_alpha  # the alpha the last beta update was computed from
+    if backend == "fused":
+        # Iteration it reads alphas[it % 2], betas[it % 2] and writes the
+        # other two; the alpha it read stays intact until the next one.
+        alphas = (log_alpha, torch.empty_like(log_alpha))
+        betas = (log_beta, torch.empty_like(log_beta))
+        err_buf = torch.empty((), dtype=torch.float32, device=m.device)
+        workspace = make_workspace(m)
     it = 0
     while rule.keep_going(it):
         if backend == "fused":
-            alpha_used = log_alpha
+            src, dst = it % 2, 1 - it % 2
+            alpha_used = alphas[src]
             log_alpha, log_beta_new, err_new = fused_sk_iteration(
-                m, log_alpha, log_beta, log_r)
+                m, alphas[src], betas[src], log_r,
+                out=(alphas[dst], betas[dst], err_buf), workspace=workspace)
         else:
             log_alpha = log_r - torch.logsumexp(m + log_beta[:, None], dim=0)
             alpha_used = log_alpha
