@@ -11,9 +11,17 @@ It builds the port's CUDA kernels from the checkout's sources
 holds each kernel against its plain PyTorch version on the card, and drives
 the port's two paths with the launch counts set to 0 just before and read
 just after each:
-- the main path: the Trainer (BN warmup, one Sinkhorn-Knopp re-clustering
-  with modality matching, an epoch of train steps) at the full width of
-  the reference VGG-Sound recipe, which runs the fused SK kernel;
+- the main path: the pretraining CLI (``selavi_tpu_torch.cli.main``) at the
+  full width of the reference VGG-Sound recipe, on a temporary
+  ``--dump_path`` outside the checkout, in two runs. Run 1 (BN warmup,
+  epoch 0 with one Sinkhorn-Knopp re-clustering, which runs the fused SK
+  kernel, and its checkpoint) gets SIGUSR1 early in epoch 1 and must exit
+  0 with a checkpoint stamped epoch 1; its checkpoint restores into a
+  fresh Trainer bit for bit; run 2, the same command with
+  ``--trace_profile true``, resumes at epoch 1 with no warmup and no SK
+  step, trains it under the profiler and writes its checkpoint. The
+  checkpoint's save, write and restore times and size, and the traced
+  epoch's device time by operation, are printed;
 - the conv probe: ``selavi_tpu_torch.experiments.conv3x3``'s ``check()``
   and ``bench()``, which run the conv3x3 forward, dgrad and wgrad kernels
   and time them beside cuDNN at R(2+1)D layer1's shape (all three bf16
@@ -34,17 +42,22 @@ no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import math
+import shutil
+import signal
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
 # Main path: the reference VGG-Sound recipe at full width (R(2+1)D-18 with
 # parity midplanes, ResNet-9 audio, 10 heads, K=309, 30x112x112 video,
-# 257x99 spectrograms, batch 24, bf16). Cut to size: 480 synthetic samples
-# (one epoch of 20 steps), one SK step at iteration 0, 2 BN-warmup batches.
+# 257x99 spectrograms, batch 24, bf16), through the CLI with --epochs 2.
+# Cut to size: 480 synthetic samples (epochs of 20 steps), one SK step at
+# iteration 0, 2 BN-warmup batches.
 MAIN_ARGS = (
     "--ds_name synthetic --num_data_samples 480 --batch_size 24 "
     "--headcount 10 --mlp_dim 309 --num_frames 30 --train_crop_size 112 "
@@ -52,6 +65,7 @@ MAIN_ARGS = (
     "--match true --compute_dtype bfloat16 --bn_warmup_batches 2 "
     "--workers 8 --base_lr 0.01 --wd 0.00001 --seed 31"
 )
+PREEMPT_STEP = 2  # run 1 gets SIGUSR1 after this many steps of epoch 1
 PAPER_N, PAPER_K = 170752, 309  # VGG-Sound SK scale
 # Kernel vs plain: the main path's N=480, the paper scale, and the edges of
 # the kernel's tiling (32-row tiles bulk-copied by the 16 bytes): an
@@ -245,51 +259,268 @@ def solver_fused_vs_plain(torch, sf, device, report):
           f"{t_bf16:.3f} s ({fused16.iters / t_bf16:.1f} it/s)", flush=True)
 
 
-def main_path(torch, sf, device, report):
-    """Phase 3: the Trainer at full width; the kernel count must move."""
-    from selavi_tpu_torch.config import parse_arguments
-    from selavi_tpu_torch.data.synthetic import SyntheticAVDataset
+def _run_cli(cli_main, argv, trainer_cls):
+    """``python -m selavi_tpu_torch.cli.main <argv>`` in this process, with
+    the CLI's Trainer replaced by ``trainer_cls``; returns the SystemExit
+    code (None when it returned) and the Trainer it built."""
     from selavi_tpu_torch.train.loop import Trainer
 
-    args = parse_arguments().parse_args(MAIN_ARGS.split())
-    dataset = SyntheticAVDataset(
-        num_samples=args.num_data_samples,
-        num_classes=max(args.mlp_dim // 4, 2),
-        num_frames=args.num_frames, crop_size=args.train_crop_size,
-        num_sec=args.num_sec_aud, aud_sample_rate=args.aud_sample_rate,
-        aud_spec_type=args.aud_spec_type, seed=args.seed,
-    )
-    trainer = Trainer(args, dataset)  # the card: no device argument
+    built = []
+
+    class Recorded(trainer_cls):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            built.append(self)
+
+    cli_main.Trainer = Recorded
+    code = None
+    try:
+        cli_main.main(argv)
+    except SystemExit as e:
+        code = e.code
+    finally:
+        cli_main.Trainer = Trainer
+    return code, built.pop()
+
+
+def cli_path(torch, sf, device, report, dump):
+    """Phase 3: the pretraining CLI at full width, on ``dump``. Run 1 is
+    preempted by SIGUSR1 in epoch 1; the restore check loads its
+    checkpoint into a fresh Trainer; run 2 resumes and traces epoch 1. The
+    SK kernel's count must move in run 1 and stay at 0 in run 2. Returns
+    the fresh Trainer."""
+    import os
+    import pickle
+
+    import numpy as np
+
+    from selavi_tpu_torch.cli import main as cli_main
+    from selavi_tpu_torch.config import parse_arguments
+    from selavi_tpu_torch.data.factory import build_dataset
+    from selavi_tpu_torch.train import checkpoint as ckpt
+    from selavi_tpu_torch.train import loop
+    from selavi_tpu_torch.utils import profiling
+
+    argv = MAIN_ARGS.split() + ["--epochs", "2", "--dump_path", dump]
+    args = parse_arguments().parse_args(argv)
+    path = os.path.join(dump, ckpt.CKPT_NAME)
+
+    class Preempted(loop.Trainer):
+        """SIGUSR1 right after train step PREEMPT_STEP of epoch 1."""
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            inner, calls = self.train_step, []
+
+            def train_step(*a):
+                out = inner(*a)
+                calls.append(1)
+                if len(calls) == self.batches_per_epoch + PREEMPT_STEP:
+                    os.kill(os.getpid(), signal.SIGUSR1)
+                return out
+
+            self.train_step = train_step
+
     sf.reset_launches()
+    ckpt.reset_timings()
     t0 = time.perf_counter()
-    history = trainer.fit()
+    code, trainer = _run_cli(cli_main, argv, Preempted)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = sf.launches
     report["launches"] = launches
-
+    saves = list(ckpt.timings)
+    history, labels = trainer.history, trainer.sl_state.selflabels
+    del trainer
+    saved = torch.load(path, map_location="cpu", weights_only=True)
     sk = [h for h in history if "sk_cost" in h]
     losses = [h["loss"] for h in history if "iter" in h]
     final = [h["loss"] for h in history if "iter" not in h and "loss" in h]
-    print(f"main path: fit() {wall:.1f} s, {trainer.batches_per_epoch} "
-          f"steps of {args.batch_size}, SK steps {len(sk)}, first loss "
-          f"{losses[0]:.4f} (ln {args.mlp_dim} = {math.log(args.mlp_dim):.4f})"
-          f", last loss {final[-1]:.4f}, SK {sk[0] if sk else None}, "
-          f"fused SK launches {launches}", flush=True)
+    print(f"CLI run 1: {wall:.1f} s, SystemExit({code}) after step "
+          f"{PREEMPT_STEP} of epoch 1, SK steps {len(sk)}, first loss "
+          f"{losses[0]:.4f} (ln {args.mlp_dim} = {math.log(args.mlp_dim):.4f}), "
+          f"epoch 0 "
+          f"loss {final[0]:.4f}, SK {sk[0] if sk else None}, fused SK "
+          f"launches {launches}; checkpoint epoch {saved['epoch']}, step "
+          f"{saved['step']}, archive {sorted(os.listdir(os.path.join(dump, 'checkpoints')))}",
+          flush=True)
+    check(code == 0, "run 1 exits 0 on SIGUSR1")
     check(len(sk) == 1, "one SK step")
     check(math.isfinite(sk[0]["sk_cost"]), "SK cost finite")
     check(sk[0]["sk_iters_max"] < 2000, "SK iters < 2000")
     check(all(math.isfinite(x) for x in losses + final), "losses finite")
     check(abs(losses[0] - math.log(args.mlp_dim)) < 0.5, "first loss ~ ln K")
-    labels = trainer.selflabels
-    check(labels.shape == (len(dataset), args.headcount), "label shape")
+    check(labels.shape == (args.num_data_samples, args.headcount),
+          "label shape")
     check(all(len(set(labels[:, h].tolist())) > 1
               for h in range(args.headcount)), "every head uses >1 cluster")
-    check(launches > 0, "the main path launched the fused SK kernel")
+    check(launches > 0, "the CLI path launched the fused SK kernel")
     check(launches == sk[0]["sk_iters_total"],
           f"one fused SK launch per solver iteration: {launches} launches, "
           f"{sk[0]['sk_iters_total']} iterations")
-    return trainer
+    check(saved["epoch"] == 1, "run 1's checkpoint resumes at epoch 1")
+    check(os.path.isfile(os.path.join(dump, "checkpoints", "ckp-0.pth")),
+          "run 1 archived epoch 0")
+    nbytes = os.path.getsize(path)
+    for name, rec in zip(("epoch 0", "preemption"), saves):
+        print(f"save_checkpoint ({name}) on {report['card']}: held the step "
+              f"loop {rec['hold_s']:.3f} s, async write {rec['write_s']:.3f} "
+              f"s, {rec['bytes']} bytes", flush=True)
+    report["ckpt_saves"] = saves
+
+    # The restore check: a fresh Trainer on the card, bit for bit.
+    fresh = loop.Trainer(args, build_dataset(args))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start = fresh.resume()  # restore_checkpoint, then the SK schedule
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    state = fresh.model.state_dict()
+    same_model = set(state) == set(saved["model"]) and all(
+        state[k].device == device and torch.equal(state[k].cpu(), v)
+        for k, v in saved["model"].items())
+    opt = fresh.optimizer.state_dict()
+    same_opt = (opt["param_groups"] == saved["optimizer"]["param_groups"]
+                and set(opt["state"]) == set(saved["optimizer"]["state"])
+                and all(opt["state"][i]["momentum_buffer"].device == device
+                        and torch.equal(opt["state"][i]["momentum_buffer"].cpu(),
+                                        s["momentum_buffer"])
+                        for i, s in saved["optimizer"]["state"].items()))
+    dists = saved["dist"]["dists"]
+    same_host = (
+        start == 1 and fresh.step == saved["step"]
+        and len(fresh.sk_schedule) == 1  # the sentinel: no SK step left
+        and fresh.sl_state.sk_counter == saved["sk_counter"]
+        and fresh.sl_state.selflabels.dtype == np.int32
+        and np.array_equal(fresh.sl_state.selflabels,
+                           saved["selflabels"].numpy())
+        and (dists is None) == (fresh.sl_state.marginals.dists is None)
+        and (dists is None or np.array_equal(fresh.sl_state.marginals.dists,
+                                             dists.numpy())))
+    print(f"restore_checkpoint (Trainer.resume) on {report['card']}: "
+          f"{restore_s:.3f} s for "
+          f"{nbytes} bytes; model tensors bit-identical {same_model} "
+          f"({len(state)}), optimizer bit-identical {same_opt} "
+          f"({len(opt['state'])} momentum buffers), selflabels / dists / "
+          f"sk_counter / step equal {same_host}", flush=True)
+    check(same_model, "restored model tensors equal the file")
+    check(same_opt, "restored optimizer tensors equal the file")
+    check(same_host, "restored host state equals the file")
+    report["restore_s"] = restore_s
+    report["ckpt_bytes"] = nbytes
+
+    # Run 2: the same command, resumed and traced.
+    warmups = []
+    traces = []
+
+    class Resumed(loop.Trainer):
+        def warmup_batchnorm(self, batches=None):
+            warmups.append(1)
+            super().warmup_batchnorm(batches)
+
+    @contextlib.contextmanager
+    def keep_trace(dump_path, enabled=True):
+        with profiling.trace_window(dump_path, enabled) as prof:
+            yield prof
+        if prof is not None:
+            traces.append(prof)
+
+    sf.reset_launches()
+    ckpt.reset_timings()
+    loop.trace_window = keep_trace
+    try:
+        t0 = time.perf_counter()
+        code, trainer = _run_cli(cli_main, argv + ["--trace_profile", "true"],
+                                 Resumed)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        loop.trace_window = profiling.trace_window
+    history = trainer.history
+    del trainer
+    saved2 = torch.load(path, map_location="cpu", weights_only=True)
+    with open(os.path.join(dump, "stats0.pkl"), "rb") as f:
+        stats = pickle.load(f)
+    epochs = [h["epoch"] for h in history if "iter" not in h]
+    run2_losses = [h["loss"] for h in history if "loss" in h]
+    print(f"CLI run 2 (--trace_profile true): {wall:.1f} s, exit {code}, "
+          f"epochs trained {epochs}, BN warmups {len(warmups)}, SK steps "
+          f"{sum('sk_cost' in h for h in history)}, fused SK launches "
+          f"{sf.launches}, epoch 1 loss {run2_losses[-1]:.4f}; checkpoint "
+          f"epoch {saved2['epoch']}, archive "
+          f"{sorted(os.listdir(os.path.join(dump, 'checkpoints')))}, stats "
+          f"rows {stats['rows']}", flush=True)
+    check(code is None, "run 2 returns")
+    check(epochs == [1], "run 2 starts at epoch 1 and trains it")
+    check(not warmups, "no BN warmup on resume")
+    check(not any("sk_cost" in h for h in history), "no SK step on resume")
+    check(sf.launches == 0, "no fused SK launch on resume")
+    check(all(math.isfinite(x) for x in run2_losses), "run 2 losses finite")
+    check(saved2["epoch"] == 2, "run 2's checkpoint resumes at epoch 2")
+    check(os.path.isfile(os.path.join(dump, "checkpoints", "ckp-1.pth")),
+          "run 2 archived epoch 1")
+    check(len(stats["rows"]) == 1 and stats["rows"][0][0] == 1,
+          "one stats row, epoch 1")
+    rec = ckpt.timings[0]
+    print(f"save_checkpoint (epoch 1) on {report['card']}: held the step "
+          f"loop {rec['hold_s']:.3f} s, async write {rec['write_s']:.3f} s, "
+          f"{rec['bytes']} bytes", flush=True)
+    trace_split(torch, os.path.join(dump, "profile", profiling.TRACE_NAME),
+                traces, report)
+    return fresh
+
+
+def trace_split(torch, trace_path, traces, report):
+    """The traced epoch's device time: the ten device operations (kernels,
+    copies, fills) that took the most, from the Chrome trace the CLI
+    wrote, and the ten host ops whose kernels took the most, from
+    ``key_averages()``."""
+    import json
+    import os
+
+    check(os.path.isfile(trace_path), f"the trace {trace_path} exists")
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    device = [e for e in events if e.get("ph") == "X" and e.get("cat") in
+              ("kernel", "gpu_memcpy", "gpu_memset")]
+    kernels = sum(e["cat"] == "kernel" for e in device)
+    check(kernels > 0, "the trace holds CUDA kernel events")
+    by_name: dict = {}
+    for e in device:
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
+    total = sum(by_name.values())
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in device)
+    busy, end = 0.0, -math.inf
+    for a, b in spans:  # the union of the device intervals
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    timed = [e for e in events if e.get("ph") == "X" and "dur" in e]
+    window = (max(e["ts"] + e["dur"] for e in timed)
+              - min(e["ts"] for e in timed))
+    print(f"traced epoch on {report['card']}: {kernels} kernels, "
+          f"{len(device) - kernels} copies and fills, device time "
+          f"{total / 1e3:.1f} ms, device busy {busy / 1e3:.1f} of "
+          f"{window / 1e3:.1f} ms traced ({busy / window * 100:.1f}%; idle "
+          f"{100 - busy / window * 100:.1f}%); trace "
+          f"{os.path.getsize(trace_path)} bytes", flush=True)
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+        print(f"  device op {us / 1e3:9.2f} ms {us / total * 100:5.1f}%  "
+              f"{name[:150]}", flush=True)
+    report["trace"] = {"device_ms": total / 1e3, "busy_ms": busy / 1e3,
+                       "window_ms": window / 1e3}
+    check(len(traces) == 1, "one traced epoch")
+    rows = [e for e in traces[0].key_averages()
+            if e.device_type == torch.autograd.DeviceType.CPU
+            and getattr(e, "self_device_time_total", 0) > 0]
+    op_total = sum(e.self_device_time_total for e in rows)
+    print(f"host ops by the device time of their own kernels "
+          f"(key_averages): {op_total / 1e3:.1f} ms in {len(rows)} ops",
+          flush=True)
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:10]:
+        print(f"  host op {e.self_device_time_total / 1e3:9.2f} ms "
+              f"{e.self_device_time_total / max(op_total, 1e-9) * 100:5.1f}%"
+              f"  {e.key} x{e.count}", flush=True)
 
 
 def time_train(torch, trainer, report):
@@ -460,6 +691,7 @@ def main() -> int:
     t_start = time.perf_counter()
     card = measure.card_description()
     print(f"card: {card}", flush=True)
+    report: dict = {"card": card}
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}", flush=True)
     # fp32 comparisons in full fp32: no TF32 in matmuls or convolutions
@@ -475,11 +707,24 @@ def main() -> int:
     print(f"built {', '.join(lib.name for lib in libs)} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
-    report: dict = {}
     inputs = kernel_vs_plain(torch, sf, device, report)
     solver_fused_vs_plain(torch, sf, device, report)
     conv_kernels_vs_plain(torch, conv, device, report)
-    trainer = main_path(torch, sf, device, report)
+    # The CLI writes its run into a directory outside the checkout.
+    dump = tempfile.mkdtemp(prefix="chip_smoke_run_")
+    root = logging.getLogger()
+    try:
+        trainer = cli_path(torch, sf, device, report, dump)
+    finally:
+        # the CLI set up its own log handlers and signal handlers
+        for handler in root.handlers:
+            handler.close()
+        root.handlers.clear()
+        logging.basicConfig(level=logging.INFO, stream=sys.stderr,
+                            format="%(asctime)s %(name)s %(message)s")
+        signal.signal(signal.SIGUSR1, signal.SIG_DFL)
+        signal.signal(signal.SIGTERM, signal.SIG_DFL)
+        shutil.rmtree(dump, ignore_errors=True)
     conv_probe_path(torch, conv, measure, device, report)
 
     # Phase 4a: the SK kernel at paper scale, against its byte bound.

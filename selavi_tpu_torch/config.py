@@ -4,8 +4,8 @@ The port's Trainer reads the same ``args`` namespace as the JAX package's,
 so recipes carry over. ``--sk_backend`` also takes the port's own names
 (``fused``, ``plain``) beside the JAX ones (``pallas``, ``xla``), which
 mean the same backends here. Flags for paths the port does not run yet (mesh,
-device spectrogram, checkpoints, YUV wire format) are kept so that one
-command line serves both packages.
+device spectrogram, YUV wire format) are kept so that one command line
+serves both packages.
 """
 
 from __future__ import annotations
@@ -186,9 +186,8 @@ def parse_arguments() -> argparse.ArgumentParser:
                              "log-filterbank spectrograms there (fused "
                              "gather+FFT+mel kernel) instead of on host")
     parser.add_argument("--trace_profile", type="bool", default="False",
-                        help="capture a profiler trace of epoch 0 into "
-                             "{dump_path}/profile (not implemented in the "
-                             "port yet: the Trainer refuses it)")
+                        help="capture a profiler trace of the first "
+                             "epoch into {dump_path}/profile/trace.json")
     parser.add_argument("--sk_backend", type=str, default="auto",
                         choices=["auto", "plain", "fused", "xla", "pallas"],
                         help="Sinkhorn solver backend (auto = the fused "

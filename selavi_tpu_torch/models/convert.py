@@ -1,10 +1,13 @@
-"""Load the JAX package's flax variables into the port's AVModel.
+"""Move weights between the JAX package's flax variables and the port's
+AVModel.
 
 ``load_jax_variables(model, params, batch_stats)`` takes the flax trees as
 nested dicts of numpy arrays and fills the module strictly: every flax leaf
 must be used and every parameter and buffer of the module must be filled,
 with matching shapes, or it raises. Then both frameworks compute the same
-function. Layout transforms (the key walk follows
+function. ``export_jax_variables(model)`` is its exact inverse: the same
+walk, giving ``(params, batch_stats)`` as numpy trees in the flax layout.
+Layout transforms (the key walk follows
 ``selavi_tpu/train/torch_export.py``):
 
 * conv kernels ``[*k, I, O] -> [O, I, *k]``;
@@ -30,14 +33,29 @@ def _leaf_paths(tree, prefix=()) -> Iterator[Tuple[str, ...]]:
 
 
 class _Walker:
-    """Reads flax leaves by path and remembers which were read."""
+    """Pairs each port key with its flax leaf; ``leaf`` moves the value one
+    way or the other."""
+
+    def conv(self, tkey: str, *path):
+        self.leaf(tkey, "params", *path, "kernel", conv=True)
+
+    def bn(self, tprefix: str, *path):
+        self.leaf(f"{tprefix}.weight", "params", *path, "scale")
+        self.leaf(f"{tprefix}.bias", "params", *path, "bias")
+        self.leaf(f"{tprefix}.running_mean", "batch_stats", *path, "mean")
+        self.leaf(f"{tprefix}.running_var", "batch_stats", *path, "var")
+
+
+class _Reader(_Walker):
+    """flax -> port: reads flax leaves by path and remembers which were
+    read."""
 
     def __init__(self, params: dict, batch_stats: dict):
         self.trees = {"params": params, "batch_stats": batch_stats}
         self.used = set()
         self.out: Dict[str, np.ndarray] = {}
 
-    def take(self, collection: str, *path) -> np.ndarray:
+    def leaf(self, tkey: str, collection: str, *path, conv: bool = False):
         node = self.trees[collection]
         for key in path:
             if key not in node:
@@ -46,26 +64,38 @@ class _Walker:
                 )
             node = node[key]
         self.used.add((collection,) + tuple(path))
-        return np.asarray(node, np.float32)
-
-    def conv(self, tkey: str, *path):
-        k = self.take("params", *path, "kernel")
-        nd = k.ndim
-        self.out[tkey] = np.transpose(k, (nd - 1, nd - 2) + tuple(range(nd - 2)))
-
-    def bn(self, tprefix: str, *path):
-        self.out[f"{tprefix}.weight"] = self.take("params", *path, "scale")
-        self.out[f"{tprefix}.bias"] = self.take("params", *path, "bias")
-        self.out[f"{tprefix}.running_mean"] = self.take("batch_stats", *path,
-                                                        "mean")
-        self.out[f"{tprefix}.running_var"] = self.take("batch_stats", *path,
-                                                       "var")
+        value = np.asarray(node, np.float32)
+        if conv:  # [*k, I, O] -> [O, I, *k]
+            nd = value.ndim
+            value = np.transpose(value, (nd - 1, nd - 2) + tuple(range(nd - 2)))
+        self.out[tkey] = value
 
     def unused(self):
         every = {("params",) + p for p in _leaf_paths(self.trees["params"])}
         every |= {("batch_stats",) + p
                   for p in _leaf_paths(self.trees["batch_stats"])}
         return sorted("/".join(p) for p in every - self.used)
+
+
+class _Writer(_Walker):
+    """port -> flax: builds the flax trees from the module's state."""
+
+    def __init__(self, state: Dict[str, torch.Tensor]):
+        self.state = state
+        self.trees = {"params": {}, "batch_stats": {}}
+        self.used = set()
+
+    def leaf(self, tkey: str, collection: str, *path, conv: bool = False):
+        value = self.state[tkey].detach().to("cpu", torch.float32,
+                                             copy=True).numpy()
+        if conv:  # [O, I, *k] -> [*k, I, O]
+            value = np.ascontiguousarray(np.transpose(
+                value, tuple(range(2, value.ndim)) + (1, 0)))
+        node = self.trees[collection]
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = value
+        self.used.add(tkey)
 
 
 def _walk_video(w: _Walker, has_downsample) -> None:
@@ -111,20 +141,23 @@ def _walk_audio(w: _Walker, n_blocks: int, has_downsample) -> None:
 
 def _walk_heads(w: _Walker, name: str, use_mlp: bool) -> None:
     if use_mlp:
-        w.out[f"{name}.hidden_weight"] = w.take("params", name, "heads",
-                                                "hidden", "kernel")
-        w.out[f"{name}.bn_weight"] = w.take("params", name, "heads", "bn",
-                                            "scale")
-        w.out[f"{name}.bn_bias"] = w.take("params", name, "heads", "bn",
-                                          "bias")
-        w.out[f"{name}.bn_running_mean"] = w.take("batch_stats", name,
-                                                  "heads", "bn", "mean")
-        w.out[f"{name}.bn_running_var"] = w.take("batch_stats", name,
-                                                 "heads", "bn", "var")
-    w.out[f"{name}.proj_weight"] = w.take("params", name, "heads", "proj",
-                                          "kernel")
-    w.out[f"{name}.proj_bias"] = w.take("params", name, "heads", "proj",
-                                        "bias")
+        w.leaf(f"{name}.hidden_weight", "params", name, "heads", "hidden",
+               "kernel")
+        w.leaf(f"{name}.bn_weight", "params", name, "heads", "bn", "scale")
+        w.leaf(f"{name}.bn_bias", "params", name, "heads", "bn", "bias")
+        w.leaf(f"{name}.bn_running_mean", "batch_stats", name, "heads", "bn",
+               "mean")
+        w.leaf(f"{name}.bn_running_var", "batch_stats", name, "heads", "bn",
+               "var")
+    w.leaf(f"{name}.proj_weight", "params", name, "heads", "proj", "kernel")
+    w.leaf(f"{name}.proj_bias", "params", name, "heads", "proj", "bias")
+
+
+def _walk(w: _Walker, model, state) -> None:
+    _walk_video(w, lambda key: key in state)
+    _walk_audio(w, len(model.audio_network.blocks), lambda key: key in state)
+    _walk_heads(w, "heads_v", model.heads_v.use_mlp)
+    _walk_heads(w, "heads_a", model.heads_a.use_mlp)
 
 
 def load_jax_variables(model, params: dict, batch_stats: dict) -> None:
@@ -132,11 +165,8 @@ def load_jax_variables(model, params: dict, batch_stats: dict) -> None:
     trees of numpy arrays. Raises on a missing or extra key or a shape
     mismatch on either side."""
     state = model.state_dict()
-    w = _Walker(params, batch_stats or {})
-    _walk_video(w, lambda key: key in state)
-    _walk_audio(w, len(model.audio_network.blocks), lambda key: key in state)
-    _walk_heads(w, "heads_v", model.heads_v.use_mlp)
-    _walk_heads(w, "heads_a", model.heads_a.use_mlp)
+    w = _Reader(params, batch_stats or {})
+    _walk(w, model, state)
     extra = w.unused()
     if extra:
         raise KeyError(f"flax leaves with no place in the model: {extra}")
@@ -152,3 +182,16 @@ def load_jax_variables(model, params: dict, batch_stats: dict) -> None:
                     f"{key}: model {tuple(target.shape)} vs flax {value.shape}"
                 )
             target.copy_(torch.tensor(value))
+
+
+def export_jax_variables(model) -> Tuple[dict, dict]:
+    """``(params, batch_stats)`` of ``model`` (an ``AVModel``) as nested
+    dicts of float32 numpy arrays in the flax layout, copied off the
+    module: the inverse of ``load_jax_variables``."""
+    state = model.state_dict()
+    w = _Writer(state)
+    _walk(w, model, state)
+    unused = sorted(set(state) - w.used)
+    if unused:
+        raise KeyError(f"model keys with no place in the flax trees: {unused}")
+    return w.trees["params"], w.trees["batch_stats"]

@@ -1,15 +1,15 @@
 """The pretraining loop on one GPU (``selavi_tpu/train/loop.py::Trainer``).
 
-BN warmup, then the epoch loop: each step trains on the current
+Resume from ``{dump_path}/checkpoint.pth`` if there is one, BN warmup when
+starting at epoch 0, then the epoch loop: each step trains on the current
 self-labels, and on the power-law schedule ``maybe_cluster`` re-labels the
 dataset with Sinkhorn-Knopp (``selflabel/engine.py::cluster``). Loss is
 logged every 50 iterations, and an epoch returns the JAX Trainer's
-``AverageMeter`` mean of those losses. Checkpoints, resume, preemption, the
-host-RSS watchdog, multi-device meshes and data echo are not ported yet: a
-flag that asks for one of them (``UNPORTED_FLAGS``) makes the Trainer raise
-rather than train something other than what the JAX Trainer would, and
-``fit`` refuses a dump path that holds a checkpoint the JAX Trainer would
-resume from.
+``AverageMeter`` mean of those losses. A checkpoint follows every epoch;
+SIGUSR1 or host-memory pressure writes one mid-epoch and exits 0. Multi-device
+meshes, data echo and the other flags in ``UNPORTED_FLAGS`` are not ported
+yet: a flag that asks for one of them makes the Trainer raise rather than
+train something other than what the JAX Trainer would.
 """
 
 from __future__ import annotations
@@ -25,19 +25,34 @@ from selavi_tpu_torch.data.loader import DataLoader
 from selavi_tpu_torch.device import resolve_device
 from selavi_tpu_torch.models.av_model import load_model
 from selavi_tpu_torch.models.resnet_audio import AUDIO_ARCHS
+from selavi_tpu_torch.parallel.dist import (
+    MULTI_GPU_ITEM,
+    memory_pressure,
+    signal_received,
+)
 from selavi_tpu_torch.selflabel.engine import SKConfig, cluster
-from selavi_tpu_torch.selflabel.marginals import MarginalState
-from selavi_tpu_torch.selflabel.schedule import make_sk_schedule
+from selavi_tpu_torch.selflabel.schedule import (
+    fast_forward_schedule,
+    make_sk_schedule,
+)
 from selavi_tpu_torch.train import step as steps
+from selavi_tpu_torch.train.checkpoint import (
+    CKPT_NAME,
+    restore_checkpoint,
+    save_checkpoint,
+    wait_for_pending_checkpoint,
+)
 from selavi_tpu_torch.train.optim import make_optimizer, set_lr, warmup_lr
+from selavi_tpu_torch.train.state import SelfLabelState
+from selavi_tpu_torch.utils.meters import AverageMeter
+from selavi_tpu_torch.utils.profiling import trace_window
 
 logger = logging.getLogger(__name__)
 
 LOG_EVERY = 50
 # The JAX Trainer's checkpoint file in --dump_path
 # (selavi_tpu/train/checkpoint.py::CKPT_NAME).
-CKPT_NAME = "checkpoint.msgpack"
-CHECKPOINT_ITEM = "1 (checkpoints, resume and CLI)"
+JAX_CKPT_NAME = "checkpoint.msgpack"
 
 # Flags that the JAX Trainer, its dataset factory or its CLI read and this
 # Trainer does not implement: flag -> (default, the ROADMAP Queue 1 item
@@ -48,14 +63,8 @@ UNPORTED_FLAGS = {
                               "data echo)"),
     "data_echo": (1, "6 (loader: wire format, process workers, data echo)"),
     "dual_data": (False, "7 (dual_data)"),
-    "resume": (False, CHECKPOINT_ITEM),
-    "checkpoint_freq": (5, CHECKPOINT_ITEM),
-    "async_checkpoint": (True, CHECKPOINT_ITEM),
-    "dump_path": (".", CHECKPOINT_ITEM),
-    "max_host_mem_gb": (0, CHECKPOINT_ITEM),
-    "trace_profile": (False, CHECKPOINT_ITEM),
     "sk_cache_batches": (False, "9 (SK phase: cached aggregation batches)"),
-    "model_axis": (1, "11 (multi-GPU)"),
+    "model_axis": (1, MULTI_GPU_ITEM),
 }
 
 
@@ -107,9 +116,8 @@ class Trainer:
             grayscale=args.use_grayscale, compute_dtype=self.compute_dtype,
         )
         n = len(dataset)
-        self.selflabels = np.zeros((n, args.headcount), np.int32)
-        self.marginals = MarginalState()
-        self.sk_counter = 0
+        self.sl_state = SelfLabelState.init(n, args.headcount)
+        self.step = 0  # optimizer steps taken (JAX's TrainState.step)
         self.np_rng = np.random.default_rng(args.seed)
         self.step_gen = torch.Generator(device=self.device)
         self.step_gen.manual_seed(args.seed + 1)
@@ -137,6 +145,20 @@ class Trainer:
         self.true_labels = getattr(dataset, "labels", None)
         self.history: list[dict] = []
         self._eval_iter_count = 0
+
+    def resume(self) -> int:
+        """Restore from ``{dump_path}/checkpoint.pth`` if it exists and
+        fast-forward the SK schedule; returns the epoch to start at."""
+        self.sl_state, start_epoch, self.step = restore_checkpoint(
+            self.args.dump_path, self.model, self.optimizer, self.sl_state,
+            self.step)
+        if start_epoch != 0:
+            self.sk_schedule, done = fast_forward_schedule(
+                self.sk_schedule, self.batches_per_epoch, start_epoch)
+            self.sl_state.sk_counter = max(self.sl_state.sk_counter, done)
+            logger.info("resumed at epoch %d (%d SK steps done)", start_epoch,
+                        done)
+        return start_epoch
 
     def warmup_batchnorm(self, batches=None) -> None:
         batches = batches if batches is not None else getattr(
@@ -183,23 +205,24 @@ class Trainer:
             return steps.head_logits(self.model, feats, modality,
                                      self.compute_dtype)
 
-        labels, self.marginals, metrics = cluster(
+        labels, marginals, metrics = cluster(
             encode_fn=encode_fn,
             head_logits_fn=head_logits_fn,
             make_batch_iter=self._make_eval_iter,
             n=len(self.dataset),
             cfg=self.sk_cfg,
-            selflabels=self.selflabels,
-            marginal_state=self.marginals,
-            iter_num=self.sk_counter,
+            selflabels=self.sl_state.selflabels,
+            marginal_state=self.sl_state.marginals,
+            iter_num=self.sl_state.sk_counter,
             np_rng=self.np_rng,
             device=self.device,
             audio_heads=self.model.heads_a,
             true_labels=self.true_labels,
-            sk_counter=self.sk_counter,
+            sk_counter=self.sl_state.sk_counter,
         )
-        self.selflabels = labels
-        self.sk_counter += 1
+        self.sl_state.selflabels = labels
+        self.sl_state.marginals = marginals
+        self.sl_state.sk_counter += 1
         self.history.append({"iteration": iteration, **metrics})
         return True
 
@@ -214,50 +237,85 @@ class Trainer:
             self.args.use_warmup_scheduler,
         ))
         self.loader.set_epoch(epoch)
-        batches_thusfar = epoch * self.batches_per_epoch
-        labels_dev = torch.from_numpy(self.selflabels).to(self.device)
+        losses = AverageMeter()
+        batch_time = AverageMeter()
+        data_time = AverageMeter()
         end = time.time()
+        batches_thusfar = epoch * self.batches_per_epoch
+        labels_dev = torch.from_numpy(self.sl_state.selflabels).to(self.device)
         metrics = None
-        # The JAX Trainer's epoch loss: an AverageMeter over the losses read
-        # at the LOG_EVERY cadence, each weighted by its batch, and the last
-        # step's loss with weight 1.
-        loss_sum, loss_weight = 0.0, 0
         for it, batch in enumerate(self.loader):
+            data_time.update(time.time() - end)
             if self.maybe_cluster(batches_thusfar + it):
-                labels_dev = torch.from_numpy(self.selflabels).to(self.device)
+                labels_dev = torch.from_numpy(self.sl_state.selflabels).to(
+                    self.device)
             metrics = self.train_step(batch, labels_dev[batch["index"]],
                                       self.step_gen)
+            self.step += 1
+            # the loss is read (a host sync) only at the logging cadence
+            batch_time.update(time.time() - end)
+            end = time.time()
             if it % LOG_EVERY == 0:
-                loss = float(metrics["loss"])  # syncs only at this cadence
-                loss_sum += loss * batch["video"].shape[0]
-                loss_weight += batch["video"].shape[0]
+                loss = float(metrics["loss"])
+                losses.update(loss, batch["video"].shape[0])
                 self.history.append({"epoch": epoch, "iter": it,
                                      "loss": loss})
-                logger.info("Epoch: [%d][%d]\tTime %.3f\tLoss %.4f", epoch,
-                            it, time.time() - end, loss)
-                end = time.time()
-        loss_sum += float(metrics["loss"])
-        loss_weight += 1
-        return loss_sum / loss_weight
+                logger.info(
+                    "Epoch: [%d][%d]\tTime %.3f (%.3f)\tData %.3f (%.3f)\t"
+                    "Loss %.4f (%.4f)", epoch, it, batch_time.val,
+                    batch_time.avg, data_time.val, data_time.avg, losses.val,
+                    losses.avg)
+            if signal_received() or memory_pressure():
+                # mid-epoch: stamp the CURRENT epoch as the resume point so
+                # the interrupted epoch re-runs in full, with its scheduled
+                # SK steps
+                self.checkpoint(epoch, completed=False)
+                wait_for_pending_checkpoint()  # flush before exiting
+                logger.warning("preemption checkpoint written; exiting")
+                raise SystemExit(0)
+        # the last step's loss, weight 1, as the JAX Trainer's epoch loss
+        losses.update(float(metrics["loss"]), 1)
+        return losses.avg
+
+    def checkpoint(self, epoch: int, completed: bool = True) -> None:
+        # one source for the resume point, shared with the file
+        resume_epoch = epoch + 1 if completed else epoch
+        self.sl_state.epoch = resume_epoch
+        save_checkpoint(
+            self.args.dump_path, self.model, self.optimizer, self.sl_state,
+            epoch, step=self.step,
+            checkpoint_freq=self.args.checkpoint_freq,
+            total_epochs=self.args.epochs,
+            dump_checkpoints=getattr(self.args, "dump_checkpoints", None),
+            async_write=self.args.async_checkpoint,
+            resume_epoch=resume_epoch,
+        )
 
     def fit(self) -> list[dict]:
-        """BN warmup, then every epoch. The JAX Trainer resumes from
-        ``{dump_path}/checkpoint.msgpack`` and writes one after each epoch;
-        this one does neither, so it raises rather than restart from epoch
-        0 over a checkpoint that the JAX Trainer would resume from."""
-        checkpoint = os.path.join(self.args.dump_path, CKPT_NAME)
-        if os.path.exists(checkpoint):
+        """Resume, BN warmup when starting at epoch 0, then every remaining
+        epoch, each followed by a checkpoint; the first one traced with
+        ``--trace_profile``. A dump path that holds only the JAX Trainer's
+        checkpoint is refused rather than trained over from epoch 0."""
+        jax_checkpoint = os.path.join(self.args.dump_path, JAX_CKPT_NAME)
+        if (os.path.exists(jax_checkpoint) and not os.path.exists(
+                os.path.join(self.args.dump_path, CKPT_NAME))):
             raise NotImplementedError(
-                f"{checkpoint} exists: the JAX Trainer would resume from it, "
-                f"and the port's Trainer does not implement resuming (ROADMAP "
-                f"Queue 1 item {CHECKPOINT_ITEM})")
-        logger.warning(
-            "the port's Trainer writes no checkpoint (the JAX Trainer writes "
-            "%s after every epoch; ROADMAP Queue 1 item %s)", checkpoint,
-            CHECKPOINT_ITEM)
-        self.warmup_batchnorm()
-        for epoch in range(self.args.epochs):
+                f"{jax_checkpoint} is a JAX checkpoint, and the port cannot "
+                f"resume from it: cross-framework resume is out of scope "
+                f"(docs/DEVIATIONS.md item 8). Its weights alone can move: "
+                f"export_torch.py writes them in the reference .pth layout, "
+                f"whose import into the port is ROADMAP Queue 1 item 10 "
+                f"(evaluation tools)")
+        start_epoch = self.resume()
+        if start_epoch == 0:
+            self.warmup_batchnorm()
+        for epoch in range(start_epoch, self.args.epochs):
             logger.info("============ Starting epoch %i ============", epoch)
-            loss = self.train_epoch(epoch)
+            with trace_window(self.args.dump_path,
+                              enabled=(self.args.trace_profile
+                                       and epoch == start_epoch)):
+                loss = self.train_epoch(epoch)
+            self.checkpoint(epoch)
             self.history.append({"epoch": epoch, "loss": loss})
+        wait_for_pending_checkpoint()  # flush the final async write
         return self.history
