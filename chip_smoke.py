@@ -22,10 +22,28 @@ just after each:
   step, trains it under the profiler and writes its checkpoint. The
   checkpoint's save, write and restore times and size, and the traced
   epoch's device time by operation, are printed;
+- the packed path: a shard of the same recipe written by ``python -m
+  selavi_tpu_torch.cli.pack_dataset`` (480 synthetic samples, 30 frames
+  stored at 160x160 in YUV 4:2:0, 48000 int16 PCM samples each), then the
+  CLI on it (``--ds_name packed --train_crop_size 112``, one epoch with BN
+  warmup and one SK step, which runs the fused SK kernel): the loader
+  reads the shard by mmap and crops it, the card turns the YUV planes into
+  RGB and the PCM into 257x99 spectrograms (``train/step.py::
+  prepare_audio``). A fresh Trainer restored from its checkpoint times the
+  step on a resident wire-format batch and an epoch, and the same CLI
+  resumed with ``--trace_profile true`` traces one epoch with the host
+  ops' input shapes, which name the layers behind the fp32 FFMA
+  convolution kernels;
 - the conv probe: ``selavi_tpu_torch.experiments.conv3x3``'s ``check()``
   and ``bench()``, which run the conv3x3 forward, dgrad and wgrad kernels
   and time them beside cuDNN at R(2+1)D layer1's shape (all three bf16
   kernels there on their wgmma routes; the per-route counts show it).
+Before the packed path it holds the card's audio frontend against the
+host's numpy spectrogram (a batch of 24 clips of 48000 samples, 257
+filters, z-normalized) and the card's YUV decode against its CPU result
+at ``[24, 30, 112, 112]``, and prints which real-media decoders the
+machine has (the real-media path itself is held against the JAX package
+by the CPU tests).
 Then it times the SK kernel and the train step. For the SK kernel it also
 holds the library's tiling (``sk_plan``) against ``plan()`` at every shape
 it compares, checks that an M off a 16-byte boundary is refused and that
@@ -66,6 +84,16 @@ MAIN_ARGS = (
     "--workers 8 --base_lr 0.01 --wd 0.00001 --seed 31"
 )
 PREEMPT_STEP = 2  # run 1 gets SIGUSR1 after this many steps of epoch 1
+# The packed path: the same recipe from a shard that stores the video at
+# the top of train_scale_range(112) in YUV 4:2:0 and the audio as int16 PCM.
+PACK_ARGS = ("--train_crop_size 160 --pack_video_format yuv420 "
+             "--pack_pcm_dtype int16")
+PACK_SHAPE = [30, 160, 160, 3]
+PCM_SAMPLES = 48000  # one second at 48 kHz
+# The card's frontend against the host's numpy float64 spectrogram, of the
+# z-normalized values (JAX's own test of its frontend uses the same).
+FRONTEND_RTOL = FRONTEND_ATOL = 2e-3
+FRONTEND_CFG = {"samplerate": 48000, "nfilt": 257, "z_normalize": True}
 PAPER_N, PAPER_K = 170752, 309  # VGG-Sound SK scale
 # Kernel vs plain: the main path's N=480, the paper scale, and the edges of
 # the kernel's tiling (32-row tiles bulk-copied by the 16 bytes): an
@@ -470,7 +498,7 @@ def cli_path(torch, sf, device, report, dump):
     return fresh
 
 
-def trace_split(torch, trace_path, traces, report):
+def trace_split(torch, trace_path, traces, report, key="trace"):
     """The traced epoch's device time: the ten device operations (kernels,
     copies, fills) that took the most, from the Chrome trace the CLI
     wrote, and the ten host ops whose kernels took the most, from
@@ -507,8 +535,8 @@ def trace_split(torch, trace_path, traces, report):
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         print(f"  device op {us / 1e3:9.2f} ms {us / total * 100:5.1f}%  "
               f"{name[:150]}", flush=True)
-    report["trace"] = {"device_ms": total / 1e3, "busy_ms": busy / 1e3,
-                       "window_ms": window / 1e3}
+    report[key] = {"device_ms": total / 1e3, "busy_ms": busy / 1e3,
+                   "window_ms": window / 1e3}
     check(len(traces) == 1, "one traced epoch")
     rows = [e for e in traces[0].key_averages()
             if e.device_type == torch.autograd.DeviceType.CPU
@@ -523,30 +551,268 @@ def trace_split(torch, trace_path, traces, report):
               f"  {e.key} x{e.count}", flush=True)
 
 
-def time_train(torch, trainer, report):
-    """Phase 4b: train clips/s, device-resident batch and full epoch."""
+def time_train(torch, trainer, report, prefix=""):
+    """Phase 4b: train clips/s, on a device-resident batch as the loader
+    gives it (a wire-format batch is decoded in the timed step) and over a
+    full epoch. Returns the resident batch."""
+    from selavi_tpu_torch.data.loader import decode_wire_batch
+
     batch = next(iter(trainer.loader))
     labels = torch.zeros(batch["index"].shape[0], trainer.args.headcount,
                          dtype=torch.long, device=trainer.device)
     gen = torch.Generator(device=trainer.device).manual_seed(0)
     for _ in range(3):
-        trainer.train_step(batch, labels, gen)
+        trainer.train_step(decode_wire_batch(batch), labels, gen)
     torch.cuda.synchronize()
     steps = 10
     t0 = time.perf_counter()
     for _ in range(steps):
-        trainer.train_step(batch, labels, gen)
+        trainer.train_step(decode_wire_batch(batch), labels, gen)
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / steps
-    clips = batch["video"].shape[0]
+    clips = batch["index"].shape[0]
     t0 = time.perf_counter()
     trainer.train_epoch(1)
     torch.cuda.synchronize()
     epoch_s = time.perf_counter() - t0
     n_epoch = trainer.batches_per_epoch * clips
-    report["train_clips_per_s"] = clips / step_s
-    report["epoch_clips_per_s"] = n_epoch / epoch_s
+    report[prefix + "train_clips_per_s"] = clips / step_s
+    report[prefix + "epoch_clips_per_s"] = n_epoch / epoch_s
     report["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return batch
+
+
+def frontend_and_yuv(torch, device, report):
+    """Phase 6: the card's audio frontend (``prepare_audio`` on int16-range
+    PCM) against the host's numpy ``get_spec`` of each clip, and the card's
+    YUV 4:2:0 decode against its CPU result, bit for bit."""
+    import numpy as np
+
+    from selavi_tpu_torch.data.audio import get_spec
+    from selavi_tpu_torch.measure import cuda_ms
+    from selavi_tpu_torch.ops.preprocess import yuv420_to_rgb_batch
+    from selavi_tpu_torch.train.step import prepare_audio
+
+    rng = np.random.default_rng(9)
+    t = np.arange(PCM_SAMPLES) / FRONTEND_CFG["samplerate"]
+    tone = 6000 * np.sin(2 * np.pi * rng.uniform(100, 8000, (24, 1)) * t)
+    pcm = np.clip(np.round(tone + rng.standard_normal((24, PCM_SAMPLES))
+                           * 3000), -32768, 32767).astype(np.int16)
+    t0 = time.perf_counter()
+    host = np.stack([get_spec(clip, 0.0, num_sec=1, sample_rate=48000,
+                              aud_spec_type=2, z_normalize=True)[0]
+                     for clip in pcm])
+    host_ms = (time.perf_counter() - t0) * 1e3
+    pcm_dev = torch.from_numpy(pcm).to(device)
+    spec = prepare_audio(pcm_dev, torch.float32, FRONTEND_CFG)
+    torch.cuda.synchronize()
+    check(spec.shape == (24, 257, 99, 1) and spec.dtype == torch.float32
+          and spec.device == device, f"the frontend's output {spec.shape}")
+    got = spec[..., 0].cpu().numpy()
+    err = np.abs(got - host)
+    within = bool((err <= FRONTEND_ATOL + FRONTEND_RTOL * np.abs(host)).all())
+    ms = cuda_ms(lambda: prepare_audio(pcm_dev, torch.float32, FRONTEND_CFG),
+                 reps=20)
+    print(f"audio frontend on {report['card']}: 24 clips of {PCM_SAMPLES} "
+          f"int16 samples -> [24, 257, 99, 1] in {ms:.4f} ms per batch on "
+          f"the card (the host's numpy get_spec: {host_ms:.1f} ms); max "
+          f"|card - host| {err.max():.3g} (tolerance {FRONTEND_ATOL} + "
+          f"{FRONTEND_RTOL} x |host|), within {within}", flush=True)
+    check(bool(np.isfinite(got).all()), "the frontend's output is finite")
+    check(within, "the card's frontend matches the host's spectrogram")
+    report["frontend_ms"] = ms
+
+    y = torch.randint(0, 256, (24, 30, 112, 112), dtype=torch.uint8,
+                      generator=torch.Generator().manual_seed(1))
+    uv = torch.randint(0, 256, (24, 30, 56, 56, 2), dtype=torch.uint8,
+                       generator=torch.Generator().manual_seed(2))
+    ref = yuv420_to_rgb_batch(y, uv)
+    y_dev, uv_dev = y.to(device), uv.to(device)
+    rgb = yuv420_to_rgb_batch(y_dev, uv_dev)
+    same = rgb.device == device and torch.equal(rgb.cpu(), ref)
+    ms = cuda_ms(lambda: yuv420_to_rgb_batch(y_dev, uv_dev), reps=20)
+    print(f"YUV 4:2:0 decode on {report['card']}: [24, 30, 112, 112] -> "
+          f"{list(rgb.shape)} uint8 in {ms:.4f} ms on the card; equal to "
+          f"the CPU result {same}", flush=True)
+    check(same, "the card's YUV decode equals the CPU's bit for bit")
+
+
+def conv_kernel_origins(prof, parts=("f32f32", "ffma")):
+    """The host ops that launched the kernels whose names hold every one of
+    ``parts``, with their input shapes and dtypes (the trace records them)
+    and their callers: which layer runs each such kernel. Returns the
+    device ms by (kernel, launching chain)."""
+    found: dict = {}
+    for e in prof.events():
+        for k in getattr(e, "kernels", ()):
+            if not all(p in k.name for p in parts):
+                continue
+            chain, p = [], e
+            while p is not None and len(chain) < 7:
+                shapes = [list(s) for s in (p.input_shapes or ()) if s]
+                types = [t for t in (getattr(p, "input_dtypes", None) or ())
+                         if t and t[0].isalpha() and "Scalar" not in t]
+                chain.append(f"{p.name}{shapes if shapes else ''}"
+                             f"{types if types else ''}")
+                p = p.cpu_parent
+            key = (k.name, " <- ".join(chain))
+            found[key] = found.get(key, 0.0) + k.duration / 1e3
+    total = sum(found.values())
+    print(f"kernels named {'*'.join(parts)}: {total:.2f} ms of device time "
+          f"in {len(found)} (kernel, launching op) pairs", flush=True)
+    for (name, chain), ms in sorted(found.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"  {ms:8.2f} ms  {name[:110]}\n      launched by {chain}",
+              flush=True)
+    return found
+
+
+def packed_path(torch, sf, device, report, tmp):
+    """Phase 7: the packed path at full width. The port's pack CLI writes
+    the shard; the pretraining CLI trains one epoch on it (BN warmup, one
+    SK step); a fresh Trainer restored from its checkpoint times the step
+    on a resident wire-format batch and an epoch; the CLI resumed with
+    ``--trace_profile true`` traces epoch 1 with the ops' input shapes."""
+    import os
+
+    from selavi_tpu_torch.cli import main as cli_main
+    from selavi_tpu_torch.cli import pack_dataset
+    from selavi_tpu_torch.config import parse_arguments
+    from selavi_tpu_torch.data.factory import build_dataset
+    from selavi_tpu_torch.data.packed import PackedAVDataset
+    from selavi_tpu_torch.train import loop
+    from selavi_tpu_torch.train import step as steps
+    from selavi_tpu_torch.train.checkpoint import CKPT_NAME
+    from selavi_tpu_torch.utils import profiling
+
+    shard = os.path.join(tmp, "synthetic_vggsound_recipe.pack")
+    samples = parse_arguments().parse_args(MAIN_ARGS.split()).num_data_samples
+    t0 = time.perf_counter()
+    meta = pack_dataset.main(MAIN_ARGS.split() + PACK_ARGS.split()
+                             + ["--output", shard])
+    write_s = time.perf_counter() - t0
+    nbytes = os.path.getsize(shard)
+    print(f"packed shard on {report['card']}: {meta['n']} samples, video "
+          f"{meta['video_shape']} {meta['video_format']}, pcm "
+          f"{meta['pcm_len']} {meta['pcm_dtype']}, {nbytes} bytes written "
+          f"in {write_s:.1f} s ({nbytes / write_s / 1e6:.1f} MB/s)",
+          flush=True)
+    check(meta["n"] == samples and meta["video_shape"] == PACK_SHAPE
+          and meta["pcm_len"] == PCM_SAMPLES
+          and meta["video_format"] == "yuv420"
+          and meta["pcm_dtype"] == "int16", f"the shard's layout {meta}")
+    report["pack_write_s"], report["pack_bytes"] = write_s, nbytes
+
+    dump = os.path.join(tmp, "run")
+    argv = MAIN_ARGS.split() + ["--ds_name", "packed", "--root_dir", shard,
+                                "--train_crop_size", "112", "--dump_path",
+                                dump]
+    fed, frontend = [], []
+    prepare_audio = steps.prepare_audio
+
+    def recorded_prepare_audio(audio, *a, **kw):
+        out = prepare_audio(audio, *a, **kw)
+        frontend.append((tuple(audio.shape), audio.device, tuple(out.shape),
+                         out.device))
+        return out
+
+    class Recorded(loop.Trainer):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.model.audio_network.register_forward_pre_hook(
+                lambda mod, inp: fed.append((tuple(inp[0].shape),
+                                             inp[0].device,
+                                             mod.training)))
+
+    sf.reset_launches()
+    steps.prepare_audio = recorded_prepare_audio
+    try:
+        t0 = time.perf_counter()
+        code, trainer = _run_cli(cli_main, argv, Recorded)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        steps.prepare_audio = prepare_audio
+    launches = sf.launches
+    history = trainer.history
+    dataset = trainer.dataset
+    del trainer
+    sk = [h for h in history if "sk_cost" in h]
+    losses = [h["loss"] for h in history if "loss" in h]
+    train_fed = {s for s, d, training in fed if training}
+    pcm_in = {(a, o) for a, ad, o, od in frontend
+              if len(a) == 2 and ad == device and od == device}
+    saved = torch.load(os.path.join(dump, CKPT_NAME), map_location="cpu",
+                       weights_only=True)
+    print(f"packed CLI run (--ds_name packed, --epochs 1): {wall:.1f} s, "
+          f"exit {code}, SK steps {len(sk)}, "
+          f"SK {sk[0] if sk else None}, fused SK launches {launches}, "
+          f"checkpoint epoch {saved['epoch']}; the card's frontend "
+          f"{sorted(pcm_in)}, the audio stem fed {sorted(train_fed)} in "
+          f"train mode", flush=True)
+    check(code is None, "the packed run returns (exit 0)")
+    check(isinstance(dataset, PackedAVDataset), "the CLI built the shard")
+    check(saved["epoch"] == 1, "the packed run's checkpoint")
+    check(len(sk) == 1 and math.isfinite(sk[0]["sk_cost"]),
+          "one SK step, finite cost")
+    check(all(math.isfinite(x) for x in losses), "packed losses finite")
+    check(launches > 0 and launches == sk[0]["sk_iters_total"],
+          f"one fused SK launch per solver iteration on the packed path: "
+          f"{launches} launches, {sk[0]['sk_iters_total']} iterations")
+    check(((24, PCM_SAMPLES), (24, 257, 99, 1)) in pcm_in,
+          "the card turned [24, 48000] PCM into [24, 257, 99, 1]")
+    check(train_fed == {(24, 257, 99, 1)}
+          and all(d == device for _, d, _ in fed),
+          "the audio stem was fed [24, 257, 99, 1] on the card")
+    report["packed_launches"] = launches
+
+    args = parse_arguments().parse_args(argv)
+    fresh = loop.Trainer(args, build_dataset(args))
+    check(fresh.resume() == 1 and len(fresh.sk_schedule) == 1,
+          "the restored Trainer starts at epoch 1 with no SK step left")
+    batch = time_train(torch, fresh, report, prefix="packed_")
+    check(batch["video_y"].dtype == torch.uint8
+          and batch["audio_pcm"].dtype == torch.int16
+          and batch["video_y"].device == device,
+          "the resident batch is uint8 YUV and int16 PCM on the card")
+    print(f"packed train on {report['card']}: "
+          f"{report['packed_train_clips_per_s']:.2f} clips/s (train step on "
+          f"a resident uint8 YUV + int16 PCM batch, decoded in the step, "
+          f"bf16), {report['packed_epoch_clips_per_s']:.2f} clips/s (epoch "
+          f"from the shard)", flush=True)
+    del fresh, batch
+
+    traces = []
+
+    @contextlib.contextmanager
+    def keep_trace(dump_path, enabled=True):
+        with profiling.trace_window(dump_path, enabled,
+                                    record_shapes=True) as prof:
+            yield prof
+        if prof is not None:
+            traces.append(prof)
+
+    sf.reset_launches()
+    loop.trace_window = keep_trace
+    try:
+        code, trainer = _run_cli(
+            cli_main, argv + ["--epochs", "2", "--trace_profile", "true"],
+            loop.Trainer)
+        torch.cuda.synchronize()
+    finally:
+        loop.trace_window = profiling.trace_window
+    epochs = [h["epoch"] for h in trainer.history if "iter" not in h]
+    del trainer
+    print(f"packed CLI run 2 (--trace_profile true): exit {code}, epochs "
+          f"trained {epochs}, fused SK launches {sf.launches}", flush=True)
+    check(code is None and epochs == [1] and sf.launches == 0,
+          "the traced packed run resumes at epoch 1 with no SK step")
+    trace_split(torch, os.path.join(dump, "profile", profiling.TRACE_NAME),
+                traces, report, key="packed_trace")
+    t = report["packed_trace"]
+    print(f"packed traced epoch on {report['card']}: device busy "
+          f"{t['busy_ms'] / t['window_ms'] * 100:.1f}% of the traced "
+          f"epoch", flush=True)
+    conv_kernel_origins(traces[0])
 
 
 def conv_kernels_vs_plain(torch, conv, device, report):
@@ -676,6 +942,18 @@ def conv_probe_path(torch, conv, measure, device, report):
     report["conv_bench"] = bench
 
 
+def _restore_process_state():
+    """Put back the log and signal handlers that a CLI run installs."""
+    root = logging.getLogger()
+    for handler in root.handlers:
+        handler.close()
+    root.handlers.clear()
+    logging.basicConfig(level=logging.INFO, stream=sys.stderr,
+                        format="%(asctime)s %(name)s %(message)s")
+    signal.signal(signal.SIGUSR1, signal.SIG_DFL)
+    signal.signal(signal.SIGTERM, signal.SIG_DFL)
+
+
 def main() -> int:
     import torch
 
@@ -710,21 +988,25 @@ def main() -> int:
     inputs = kernel_vs_plain(torch, sf, device, report)
     solver_fused_vs_plain(torch, sf, device, report)
     conv_kernels_vs_plain(torch, conv, device, report)
-    # The CLI writes its run into a directory outside the checkout.
+    frontend_and_yuv(torch, device, report)
+    from selavi_tpu_torch.data import decoder
+
+    print(f"real-media decoders found: have_pyav "
+          f"{decoder.have_pyav()}, have_ffmpeg {decoder.have_ffmpeg()}, "
+          f"have_cv2 {decoder.have_cv2()}", flush=True)
+    # The CLI writes its runs into directories outside the checkout.
     dump = tempfile.mkdtemp(prefix="chip_smoke_run_")
-    root = logging.getLogger()
     try:
         trainer = cli_path(torch, sf, device, report, dump)
     finally:
-        # the CLI set up its own log handlers and signal handlers
-        for handler in root.handlers:
-            handler.close()
-        root.handlers.clear()
-        logging.basicConfig(level=logging.INFO, stream=sys.stderr,
-                            format="%(asctime)s %(name)s %(message)s")
-        signal.signal(signal.SIGUSR1, signal.SIG_DFL)
-        signal.signal(signal.SIGTERM, signal.SIG_DFL)
+        _restore_process_state()
         shutil.rmtree(dump, ignore_errors=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_packed_")
+    try:
+        packed_path(torch, sf, device, report, tmp)
+    finally:
+        _restore_process_state()
+        shutil.rmtree(tmp, ignore_errors=True)
     conv_probe_path(torch, conv, measure, device, report)
 
     # Phase 4a: the SK kernel at paper scale, against its byte bound.

@@ -4,8 +4,8 @@ The port's Trainer reads the same ``args`` namespace as the JAX package's,
 so recipes carry over. ``--sk_backend`` also takes the port's own names
 (``fused``, ``plain``) beside the JAX ones (``pallas``, ``xla``), which
 mean the same backends here. Flags for paths the port does not run yet (mesh,
-device spectrogram, YUV wire format) are kept so that one command line
-serves both packages.
+coalesced transfers, process workers, data echo) are kept so that one
+command line serves both packages.
 """
 
 from __future__ import annotations
@@ -183,8 +183,9 @@ def parse_arguments() -> argparse.ArgumentParser:
     parser.add_argument("--device_spectrogram", type="bool",
                         default="False",
                         help="ship raw PCM to the device and compute "
-                             "log-filterbank spectrograms there (fused "
-                             "gather+FFT+mel kernel) instead of on host")
+                             "log-filterbank spectrograms there (rfft + "
+                             "mel matmul, ops/logmel.py) instead of on "
+                             "the host")
     parser.add_argument("--trace_profile", type="bool", default="False",
                         help="capture a profiler trace of the first "
                              "epoch into {dump_path}/profile/trace.json")

@@ -1,21 +1,28 @@
 """Audio frontend: waveform -> log filterbank spectrogram (numpy).
 
-The port's copy of the parts of ``selavi_tpu/data/audio.py`` that the
-synthetic dataset needs: clip slicing at the clip's start second (clamped
-to the file) and the python_speech_features log filterbank (preemphasis
-0.97, zero-padded rectangular framing with ``winlen=0.02, winstep=0.01,
-nfft=1024``,
-``|rfft|^2 / nfft`` power spectrum, triangular mel filters, eps-floored
-log) with ``nfilt`` 40 (spec type 1) or 257 (spec type 2), transposed to
-``[nfilt, T]`` (T = 99 frames per second), optional z-normalization
-``(x - 1.93) / 17.89``. The JAX package's optional C++ filterbank is not
-ported; this is its numpy reference path.
+The port's copy of ``selavi_tpu/data/audio.py`` (the reference's
+datasets/audio_utils.py:14-112): clip slicing at the clip's start second
+(clamped to the file), temporal jitter (+-0.5 s) and volume jitter
+(x U(0.9, 1.1)) drawn from the caller's rng in the JAX package's order,
+and the python_speech_features log filterbank (preemphasis 0.97,
+zero-padded rectangular framing with ``winlen=0.02, winstep=0.01,
+nfft=1024``, ``|rfft|^2 / nfft`` power spectrum, triangular mel filters,
+eps-floored log) with ``nfilt`` 40 (spec type 1) or 257 (spec type 2),
+transposed to ``[nfilt, T]`` (T = 99 frames per second), optional
+z-normalization ``(x - 1.93) / 17.89``.
+
+The host computes the filterbank in numpy float64 here; the JAX package
+uses its C++ data runtime when built, which the port has not yet (ROADMAP
+Queue 1 item 4). With ``--device_spectrogram`` the host only slices and
+jitters the waveform (``slice_clip_pcm``) and the card computes the
+spectrogram (``selavi_tpu_torch.ops.logmel``).
 """
 
 from __future__ import annotations
 
 import functools
 import math
+from typing import Optional
 
 import numpy as np
 
@@ -103,9 +110,18 @@ def _clip_window(wav: np.ndarray, fr_sec: float, num_sec: int,
 
 def get_spec(wav: np.ndarray, fr_sec: float, num_sec: int = 1,
              sample_rate: int = 48000, aud_spec_type: int = 1,
-             z_normalize: bool = False) -> np.ndarray:
-    """Slice + spectrogram. Returns [1, nfilt, T] float32."""
+             use_volume_jittering: bool = False,
+             use_temporal_jittering: bool = False,
+             z_normalize: bool = False,
+             rng: Optional[np.random.Generator] = None) -> np.ndarray:
+    """Slice + augment + spectrogram. Returns [1, nfilt, T] float32."""
+    if rng is None:
+        rng = np.random.default_rng()
+    if use_temporal_jittering:
+        fr_sec = fr_sec + rng.uniform(-0.5, 0.5)
     wav = _clip_window(wav, fr_sec, num_sec, sample_rate)
+    if use_volume_jittering:
+        wav = wav * rng.uniform(0.9, 1.1)
     nfilt = 40 if aud_spec_type == 1 else 257
     spec = logfbank(np.asarray(wav, np.float64), sample_rate, winlen=0.02,
                     winstep=0.01, nfilt=nfilt, nfft=1024)
@@ -113,6 +129,26 @@ def get_spec(wav: np.ndarray, fr_sec: float, num_sec: int = 1,
     if z_normalize:
         spec = (spec - 1.93) / 17.89
     return spec
+
+
+def slice_clip_pcm(wav: np.ndarray, fr_sec: float, num_sec: int = 1,
+                   sample_rate: int = 48000,
+                   use_volume_jittering: bool = False,
+                   use_temporal_jittering: bool = False,
+                   rng: Optional[np.random.Generator] = None) -> np.ndarray:
+    """Host half of the device-spectrogram path: the clip slicing and
+    waveform jitters of ``get_spec`` (same clamping, same draws), returning
+    the raw [num_sec * sample_rate] float32 waveform for the card's
+    log-filterbank (``ops/logmel.py``)."""
+    if rng is None:
+        rng = np.random.default_rng()
+    if use_temporal_jittering:
+        fr_sec = fr_sec + rng.uniform(-0.5, 0.5)
+    clip = np.asarray(_clip_window(wav, fr_sec, num_sec, sample_rate),
+                      np.float32)
+    if use_volume_jittering:
+        clip = clip * np.float32(rng.uniform(0.9, 1.1))
+    return clip
 
 
 def spec_num_frames(num_sec: int, sample_rate: int) -> int:

@@ -5,12 +5,20 @@ the same order (``default_rng((seed, epoch)).permutation(N)``) and the same
 per-example RNG (``default_rng((seed, epoch, index))``), so the port reads
 the same samples as the JAX package. Batches are collated to
 
-    {"video": uint8 [B,T,H,W,3], "audio": fp32 [B,F,T,1],
-     "label": int64 [B], "index": int64 [B]}
+    {"video": uint8 [B,T,H,W,3]            (or, from a yuv420 shard,
+                                            "video_y" uint8 [B,T,H,W] and
+                                            "video_uv" uint8 [B,T,H/2,W/2,2]),
+     "audio": fp32 [B,F,T,1]               (or "audio_pcm" [B,S]: int16 as
+                                            stored, fp32 otherwise),
+     "label": int64 [B], "index": int64 [B], "vid_idx": int64 [B]}
 
 and copied to the device from pinned memory with ``non_blocking``. Example
 rendering runs on ``num_workers`` threads (numpy releases the GIL for the
 heavy parts), ``prefetch`` batches ahead of the consumer.
+
+The wire formats stay compact until they are on the device:
+``decode_wire_batch`` (the JAX package's ``decode_wire_batches``) turns the
+YUV planes into RGB and int16 PCM into fp32 there.
 """
 
 from __future__ import annotations
@@ -21,6 +29,8 @@ from typing import Iterator
 
 import numpy as np
 import torch
+
+from selavi_tpu_torch.ops.preprocess import yuv420_to_rgb_batch
 
 
 class DataLoader:
@@ -57,17 +67,26 @@ class DataLoader:
         return self.dataset.get_example(int(i), rng)
 
     def _collate(self, examples) -> dict:
-        audio = np.stack([e["audio"] for e in examples])
-        if audio.ndim == 3:  # [B, F, T] -> add the channel axis
-            audio = audio[..., None]
-        host = {
-            "video": torch.from_numpy(np.stack([e["video"] for e in examples])),
-            "audio": torch.from_numpy(audio.astype(np.float32)),
-            "label": torch.as_tensor([e["label"] for e in examples],
-                                     dtype=torch.int64),
-            "index": torch.as_tensor([e["index"] for e in examples],
-                                     dtype=torch.int64),
-        }
+        host = {}
+        if "video_y" in examples[0]:
+            host["video_y"] = np.stack([e["video_y"] for e in examples])
+            host["video_uv"] = np.stack([e["video_uv"] for e in examples])
+        else:
+            host["video"] = np.stack([e["video"] for e in examples])
+        if "audio_pcm" in examples[0]:
+            # raw waveforms: the spectrogram is computed on the device;
+            # int16 (packed shards) stays int16 over the wire
+            pcm = np.stack([e["audio_pcm"] for e in examples])
+            host["audio_pcm"] = (pcm if pcm.dtype == np.int16
+                                 else pcm.astype(np.float32))
+        else:
+            audio = np.stack([e["audio"] for e in examples])
+            if audio.ndim == 3:  # [B, F, T] -> add the channel axis
+                audio = audio[..., None]
+            host["audio"] = audio.astype(np.float32)
+        for key in ("label", "index", "vid_idx"):
+            host[key] = np.asarray([e[key] for e in examples], np.int64)
+        host = {k: torch.from_numpy(v) for k, v in host.items()}
         if self.device.type != "cuda":
             return host
         return {k: v.pin_memory().to(self.device, non_blocking=True)
@@ -90,3 +109,23 @@ class DataLoader:
                     yield self._collate([f.result() for f in pending.popleft()])
             while pending:
                 yield self._collate([f.result() for f in pending.popleft()])
+
+
+def decode_wire_batch(batch: dict) -> dict:
+    """Expand the wire formats where the batch lies: YUV 4:2:0 planes
+    become RGB uint8 ``video``, int16 ``audio_pcm`` becomes fp32. Plain
+    batches pass through unchanged."""
+    if "video_y" in batch:
+        batch = dict(batch)
+        batch["video"] = yuv420_to_rgb_batch(batch.pop("video_y"),
+                                             batch.pop("video_uv"))
+    if "audio_pcm" in batch and batch["audio_pcm"].dtype == torch.int16:
+        batch = dict(batch)
+        batch["audio_pcm"] = batch["audio_pcm"].float()
+    return batch
+
+
+def decode_wire_batches(batch_iter: Iterator[dict]) -> Iterator[dict]:
+    """``decode_wire_batch`` over an iterator of batches."""
+    for batch in batch_iter:
+        yield decode_wire_batch(batch)

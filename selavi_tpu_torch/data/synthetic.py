@@ -1,7 +1,8 @@
 """Synthetic audio-visual dataset: correlated modalities, known clusters.
 
-The port's copy of ``selavi_tpu/data/synthetic.py`` (spectrogram audio,
-one clip per sample; the PCM and dual-clip variants are not ported). A
+The port's copy of ``selavi_tpu/data/synthetic.py`` (one clip per sample;
+the dual-clip variant is not ported). Audio is a spectrogram, or with
+``return_pcm`` the raw clip waveform for the card's frontend. A
 synthetic in-memory AV dataset (random frames + sine-wave audio) smokes
 the full training loop without media files or decode libraries. Each
 sample's class drives both a visual signature (colored moving square on
@@ -37,6 +38,7 @@ class SyntheticAVDataset:
         aud_spec_type: int = 1,
         z_normalize: bool = False,
         seed: int = 0,
+        return_pcm: bool = False,
     ):
         self.num_samples = num_samples
         self.num_classes = num_classes
@@ -46,6 +48,7 @@ class SyntheticAVDataset:
         self.aud_sample_rate = aud_sample_rate
         self.aud_spec_type = aud_spec_type
         self.z_normalize = z_normalize
+        self.return_pcm = return_pcm
         # Signature v2 for high class counts: the v1 audio map
         # f0 = 110*2^(label/2) passes Nyquist at label ~= 2*log2(sr/220)
         # (label 14 at 24 kHz), after which classes alias onto each other,
@@ -176,6 +179,13 @@ class SyntheticAVDataset:
             )
             wav = (wav * 8000).astype(np.float64)
             fr_sec = rng.uniform(0, dur - self.num_sec)
+        if self.return_pcm:
+            # device-spectrogram path: the raw clip waveform; the card's
+            # frontend (ops/logmel.py) computes the spectrogram
+            fr = int(np.round(fr_sec * sr))
+            out["audio_pcm"] = wav[fr:fr + self.num_sec * sr].astype(
+                np.float32)
+            return out
         out["audio"] = get_spec(
             wav,
             fr_sec,

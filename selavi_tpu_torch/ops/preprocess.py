@@ -34,6 +34,24 @@ def normalize_video(frames_u8, dtype=torch.float32):
     return ((x - 0.45) / 0.225).to(dtype)
 
 
+def yuv420_to_rgb_batch(y_u8, uv_u8):
+    """YUV 4:2:0 wire format -> RGB uint8 on the tensors' device.
+
+    ``y`` [B,T,H,W] + ``uv`` [B,T,H/2,W/2,2] uint8 -> [B,T,H,W,3] uint8
+    (BT.601 full range, nearest-neighbour chroma upsample, rounded half to
+    even and clipped, as the JAX package's). The wire format halves the
+    video bytes from host to card (1.5 B/px against 3).
+    """
+    y = y_u8.float()
+    uv = uv_u8.float() - 128.0
+    uv = uv.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
+    u, v = uv[..., 0], uv[..., 1]
+    rgb = torch.stack([y + 1.402 * v,
+                       y - 0.344136 * u - 0.714136 * v,
+                       y + 1.772 * u], dim=-1)
+    return torch.round(rgb).clamp_(0.0, 255.0).to(torch.uint8)
+
+
 def jitter_coefficients(bf, cf, sf, perm_idx):
     """Composed-jitter triple ``[3, b]`` of the map
     ``x -> t1*x + t2*G(x) + t3*M(G(x))`` for order ``JITTER_PERMS[perm_idx]``."""

@@ -64,7 +64,8 @@ def aggregate_features(
     ps_a = torch.zeros(n, feat_dim_a or feat_dim, dtype=torch.float32,
                        device=device)
     for batch in batch_iter:
-        feat_v, feat_a = encode_fn(batch["video"], batch["audio"])
+        feat_v, feat_a = encode_fn(
+            batch["video"], batch.get("audio", batch.get("audio_pcm")))
         idx = torch.as_tensor(batch["index"], dtype=torch.long).to(device)
         ps_v.index_copy_(0, idx, feat_v.float())
         ps_a.index_copy_(0, idx, feat_a.float())

@@ -6,10 +6,17 @@ self-labels, and on the power-law schedule ``maybe_cluster`` re-labels the
 dataset with Sinkhorn-Knopp (``selflabel/engine.py::cluster``). Loss is
 logged every 50 iterations, and an epoch returns the JAX Trainer's
 ``AverageMeter`` mean of those losses. A checkpoint follows every epoch;
-SIGUSR1 or host-memory pressure writes one mid-epoch and exits 0. Multi-device
-meshes, data echo and the other flags in ``UNPORTED_FLAGS`` are not ported
-yet: a flag that asks for one of them makes the Trainer raise rather than
-train something other than what the JAX Trainer would.
+SIGUSR1 or host-memory pressure writes one mid-epoch and exits 0.
+
+Batches come from any dataset of ``data/factory.py``: spectrograms or raw
+PCM (``--device_spectrogram``, or a packed shard), RGB or YUV 4:2:0 video.
+Every batch goes through ``data/loader.py::decode_wire_batch`` on the
+device, and the steps turn PCM into spectrograms there
+(``train/step.py::prepare_audio`` with the args' ``audio_cfg``).
+Multi-device meshes, process workers, data echo and the other flags in
+``UNPORTED_FLAGS`` are not ported yet: a flag that asks for one of them
+makes the Trainer raise rather than train something other than what the
+JAX Trainer would.
 """
 
 from __future__ import annotations
@@ -21,7 +28,8 @@ import time
 import numpy as np
 import torch
 
-from selavi_tpu_torch.data.loader import DataLoader
+from selavi_tpu_torch.data.factory import audio_cfg_from_args
+from selavi_tpu_torch.data.loader import DataLoader, decode_wire_batches
 from selavi_tpu_torch.device import resolve_device
 from selavi_tpu_torch.models.av_model import load_model
 from selavi_tpu_torch.models.resnet_audio import AUDIO_ARCHS
@@ -58,10 +66,8 @@ JAX_CKPT_NAME = "checkpoint.msgpack"
 # Trainer does not implement: flag -> (default, the ROADMAP Queue 1 item
 # that ports it). Any other value raises NotImplementedError.
 UNPORTED_FLAGS = {
-    "device_spectrogram": (False, "5 (device audio frontend)"),
-    "worker_mode": ("thread", "6 (loader: wire format, process workers, "
-                              "data echo)"),
-    "data_echo": (1, "6 (loader: wire format, process workers, data echo)"),
+    "worker_mode": ("thread", "6 (loader: process workers, data echo)"),
+    "data_echo": (1, "6 (loader: process workers, data echo)"),
     "dual_data": (False, "7 (dual_data)"),
     "sk_cache_batches": (False, "9 (SK phase: cached aggregation batches)"),
     "model_axis": (1, MULTI_GPU_ITEM),
@@ -111,9 +117,11 @@ class Trainer:
         )
         self.batches_per_epoch = len(self.loader)
         self.optimizer = make_optimizer(self.model, args.base_lr, args.wd)
+        self.audio_cfg = audio_cfg_from_args(args)
         self.train_step = steps.make_train_step(
             self.model, self.optimizer, colorjitter=args.colorjitter,
             grayscale=args.use_grayscale, compute_dtype=self.compute_dtype,
+            audio_cfg=self.audio_cfg,
         )
         n = len(dataset)
         self.sl_state = SelfLabelState.init(n, args.headcount)
@@ -168,16 +176,18 @@ class Trainer:
         logger.info("Warming up batchnorm (%d batches)", batches)
         self.loader.set_epoch(999)
         gen = torch.Generator(device=self.device).manual_seed(999)
-        for i, batch in enumerate(self.loader):
+        for i, batch in enumerate(decode_wire_batches(self.loader)):
             if i >= batches:
                 break
-            steps.bn_warmup_step(self.model, batch["video"], batch["audio"],
-                                 gen, self.compute_dtype)
+            steps.bn_warmup_step(
+                self.model, batch["video"],
+                batch.get("audio", batch.get("audio_pcm")), gen,
+                self.compute_dtype, self.audio_cfg)
 
     def _make_eval_iter(self):
         """A fresh sequential full-dataset iterator for SK aggregation."""
         self._eval_iter_count += 1
-        return iter(DataLoader(
+        return decode_wire_batches(DataLoader(
             self.dataset,
             batch_size=min(getattr(self.args, "sk_agg_batch", 128),
                            max(len(self.dataset), 1)),
@@ -198,7 +208,7 @@ class Trainer:
                 self.model, video, audio, self.agg_gen,
                 augment=self.sk_augment, colorjitter=self.args.colorjitter,
                 grayscale=self.args.use_grayscale,
-                compute_dtype=self.compute_dtype,
+                compute_dtype=self.compute_dtype, audio_cfg=self.audio_cfg,
             )
 
         def head_logits_fn(feats, modality):
@@ -244,7 +254,7 @@ class Trainer:
         batches_thusfar = epoch * self.batches_per_epoch
         labels_dev = torch.from_numpy(self.sl_state.selflabels).to(self.device)
         metrics = None
-        for it, batch in enumerate(self.loader):
+        for it, batch in enumerate(decode_wire_batches(self.loader)):
             data_time.update(time.time() - end)
             if self.maybe_cluster(batches_thusfar + it):
                 labels_dev = torch.from_numpy(self.sl_state.selflabels).to(

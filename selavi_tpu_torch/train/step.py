@@ -5,15 +5,22 @@ and heads in train mode, ``loss = 0.5 * CE_v + 0.5 * CE_a`` (each the mean
 over heads of the fp32 cross-entropy), backward, SGD step. Compute runs
 under bf16 autocast when ``compute_dtype`` is bfloat16 (the default on the
 card) and in fp32 otherwise.
+
+Audio arrives as spectrograms ``[B,F,T,1]`` or, with
+``--device_spectrogram``, as raw PCM ``[B,S]`` that ``prepare_audio``
+turns into spectrograms on the device (``ops/logmel.py``), in fp32 and
+outside autocast.
 """
 
 from __future__ import annotations
 
 import contextlib
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
+from selavi_tpu_torch.ops.logmel import logfbank_batch
 from selavi_tpu_torch.ops.preprocess import augment_video_batch, normalize_video
 
 
@@ -22,6 +29,28 @@ def autocast(device: torch.device, compute_dtype: torch.dtype):
     if compute_dtype in (torch.bfloat16, torch.float16):
         return torch.autocast(device_type=device.type, dtype=compute_dtype)
     return contextlib.nullcontext()
+
+
+def prepare_audio(audio: torch.Tensor, dtype: torch.dtype = torch.float32,
+                  audio_cfg: Optional[dict] = None) -> torch.Tensor:
+    """Spectrograms ``[B,F,T,C]`` pass through (cast to ``dtype``); raw PCM
+    ``[B,S]`` becomes ``[B,F,T,1]``, and dual-clip PCM ``[B,n,S]`` (n <= 4)
+    an n-channel spectrogram ``[B,F,T,n]`` (the reference stacks dual specs
+    along the channel axis, AVideoDataset.py:451). ``audio_cfg`` holds
+    ``samplerate``, ``nfilt`` and ``z_normalize``
+    (``data/factory.py::audio_cfg_from_args``)."""
+    if audio.ndim == 2 or (audio.ndim == 3 and audio.shape[1] <= 4):
+        cfg = audio_cfg or {}
+        clips = audio.shape[1] if audio.ndim == 3 else None
+        pcm = audio.reshape(-1, audio.shape[-1])
+        spec = logfbank_batch(pcm, samplerate=cfg.get("samplerate", 48000),
+                              nfilt=cfg.get("nfilt", 257),
+                              z_normalize=cfg.get("z_normalize", False))
+        if clips is None:
+            return spec[..., None].to(dtype)
+        spec = spec.reshape(audio.shape[0], clips, *spec.shape[1:])
+        return spec.movedim(1, -1).to(dtype)  # [B, F, T, n]
+    return audio.to(dtype)
 
 
 def multihead_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -34,10 +63,13 @@ def multihead_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 def make_train_step(model, optimizer, colorjitter: bool = False,
                     grayscale: bool = False,
-                    compute_dtype: torch.dtype = torch.float32):
+                    compute_dtype: torch.dtype = torch.float32,
+                    audio_cfg: Optional[dict] = None):
     """Returns ``step(batch, labels, generator) -> metrics`` (0-dim tensors,
     not synced). ``batch['video']`` uint8 [B,T,H,W,3] and
-    ``batch['audio']`` fp32 [B,F,T,1] on the device; ``labels`` [B, H]."""
+    ``batch['audio']`` fp32 [B,F,T,1] (or ``batch['audio_pcm']`` [B,S],
+    turned into spectrograms by ``prepare_audio``) on the device;
+    ``labels`` [B, H]."""
     param = next(model.parameters())
     device, dtype = param.device, param.dtype
 
@@ -47,9 +79,10 @@ def make_train_step(model, optimizer, colorjitter: bool = False,
                                     colorjitter=colorjitter,
                                     grayscale=grayscale, flip=True,
                                     dtype=dtype)
+        audio = prepare_audio(batch.get("audio", batch.get("audio_pcm")),
+                              dtype, audio_cfg)
         with autocast(device, compute_dtype):
-            logits_v, logits_a = model(video, batch["audio"].to(dtype),
-                                       generator=generator)
+            logits_v, logits_a = model(video, audio, generator=generator)
             loss_v = multihead_ce(logits_v, labels)
             loss_a = multihead_ce(logits_a, labels)
             loss = 0.5 * loss_v + 0.5 * loss_a
@@ -64,12 +97,14 @@ def make_train_step(model, optimizer, colorjitter: bool = False,
 
 @torch.no_grad()
 def bn_warmup_step(model, video_u8, audio, generator,
-                   compute_dtype: torch.dtype = torch.float32):
+                   compute_dtype: torch.dtype = torch.float32,
+                   audio_cfg: Optional[dict] = None):
     """Forward-only train-mode pass (heads included) that updates the BN
     running statistics."""
     device = video_u8.device
     model.train()
     video = augment_video_batch(video_u8, generator, flip=True)
+    audio = prepare_audio(audio, next(model.parameters()).dtype, audio_cfg)
     with autocast(device, compute_dtype):
         model(video, audio, generator=generator)
 
@@ -77,10 +112,12 @@ def bn_warmup_step(model, video_u8, audio, generator,
 @torch.no_grad()
 def encode(model, video_u8, audio, generator=None, augment: bool = True,
            colorjitter: bool = False, grayscale: bool = False,
-           compute_dtype: torch.dtype = torch.float32):
+           compute_dtype: torch.dtype = torch.float32,
+           audio_cfg: Optional[dict] = None):
     """Eval-mode pooled features ``(feat_v, feat_a)`` for SK aggregation.
     ``augment`` runs the train-time flip (and jitter/grayscale when set);
-    otherwise the video is only normalized."""
+    otherwise the video is only normalized. PCM ``audio`` goes through
+    ``prepare_audio``."""
     device = video_u8.device
     model.eval()
     if augment:
@@ -89,6 +126,7 @@ def encode(model, video_u8, audio, generator=None, augment: bool = True,
                                     grayscale=grayscale, flip=True)
     else:
         video = normalize_video(video_u8)
+    audio = prepare_audio(audio, next(model.parameters()).dtype, audio_cfg)
     with autocast(device, compute_dtype):
         return model(video, audio, return_features=True)
 

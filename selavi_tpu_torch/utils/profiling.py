@@ -19,12 +19,15 @@ TRACE_NAME = "trace.json"
 
 
 @contextlib.contextmanager
-def trace_window(dump_path: str, enabled: bool = True):
+def trace_window(dump_path: str, enabled: bool = True,
+                 record_shapes: bool = False):
     """Trace the enclosed block (host ops, and the card's kernels and
     copies when there is a card) into the Chrome trace
     ``{dump_path}/profile/trace.json``; yields the ``torch.profiler``
-    profile (None when off). A profiler that fails to start or stop is
-    logged and the block runs on, as in the JAX package."""
+    profile (None when off). ``record_shapes`` adds each host op's input
+    shapes, which name the layer behind a kernel. A profiler that fails to
+    start or stop is logged and the block runs on, as in the JAX
+    package."""
     if not enabled:
         yield None
         return
@@ -33,7 +36,7 @@ def trace_window(dump_path: str, enabled: bool = True):
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
-    prof = profile(activities=activities)
+    prof = profile(activities=activities, record_shapes=record_shapes)
     try:
         prof.start()
         started = True

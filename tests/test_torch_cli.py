@@ -171,13 +171,6 @@ def test_cli_refuses_the_cpu_without_a_request(tmp_path, monkeypatch):
     assert not (tmp_path / "run").exists()  # before anything is written
 
 
-def test_cli_refuses_datasets_it_does_not_have(tmp_path):
-    argv = _argv(tmp_path / "run") + ["--ds_name", "packed"]
-    with pytest.raises(NotImplementedError,
-                       match="'packed'.*ROADMAP Queue 1 item 2"):
-        cli_main.main(argv, device="cpu")
-
-
 # -------------------------------------------------- signals and watchdog
 
 def test_signal_flag_roundtrip():

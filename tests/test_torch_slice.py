@@ -75,7 +75,7 @@ def test_trainer_fit_runs_the_slice_on_cpu(monkeypatch, tmp_path):
 
 # A non-default value of every flag in UNPORTED_FLAGS.
 UNPORTED_VALUES = {
-    "device_spectrogram": "true", "worker_mode": "process", "data_echo": "2",
+    "worker_mode": "process", "data_echo": "2",
     "dual_data": "true", "sk_cache_batches": "true", "model_axis": "2",
 }
 
@@ -148,7 +148,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     modules = [m.name for m in pkgutil.walk_packages(
         selavi_tpu_torch.__path__, "selavi_tpu_torch.")]
     for name in ("ops.sinkhorn_fused", "ops.conv3x3", "ops._build",
-                 "experiments.conv3x3", "cli.main", "data.factory",
+                 "experiments.conv3x3", "cli.main", "cli.pack_dataset",
+                 "data.factory", "data.transforms", "data.decoder",
+                 "data.dataset", "data.packed", "ops.logmel",
                  "parallel.dist", "train.checkpoint", "train.state",
                  "train.torch_export", "utils.experiment", "utils.logger",
                  "utils.meters", "utils.profiling"):
@@ -158,7 +160,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         f"for m in {modules!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
-        "       ('jax', 'flax', 'optax', 'pandas', 'selavi_tpu')]\n"
+        "       ('jax', 'flax', 'optax', 'pandas', 'selavi_tpu', 'joblib',\n"
+        "        'sklearn', 'cv2', 'av')]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
