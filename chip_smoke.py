@@ -5,12 +5,13 @@ Run from the root of a checkout on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels from the checkout's sources
-(``selavi_tpu_torch/csrc/{fused_sk,conv3x3}.cu`` into
-``build/selavi_tpu_torch/``, one ``nvcc`` per source, started together),
-holds each kernel against its plain PyTorch version on the card, and drives
-the port's two paths with the launch counts set to 0 just before and read
-just after each:
+It builds the port's CUDA kernels and its C++ host data runtime from the
+checkout's sources (``selavi_tpu_torch/csrc/{fused_sk,conv3x3}.cu`` and
+``selavi_tpu_torch/native/data_runtime.cpp`` into
+``build/selavi_tpu_torch/``, one ``nvcc`` per source and ``g++``, started
+together; it fails if the host runtime does not load), holds each kernel
+against its plain PyTorch version on the card, and drives the port's paths
+with the launch counts set to 0 just before and read just after each:
 - the main path: the pretraining CLI (``selavi_tpu_torch.cli.main``) at the
   full width of the reference VGG-Sound recipe, on a temporary
   ``--dump_path`` outside the checkout, in two runs. Run 1 (BN warmup,
@@ -20,8 +21,18 @@ just after each:
   fresh Trainer bit for bit; run 2, the same command with
   ``--trace_profile true``, resumes at epoch 1 with no warmup and no SK
   step, trains it under the profiler and writes its checkpoint. The
-  checkpoint's save, write and restore times and size, and the traced
-  epoch's device time by operation, are printed;
+  checkpoint's save, write and restore times and size, the traced
+  epoch's device time by operation, and the SK step's modality matcher
+  (its route, which must be the native one, and seconds for the 10
+  heads, beside the Python loop's on the same cost matrices) are printed;
+- the loader modes: the same CLI recipe for one epoch with spawned loader
+  workers, data echo 2 and coalesced transfers (``--worker_mode process
+  --data_echo 2 --coalesce_transfers true``): twice the steps of the
+  loaded batches, one SK step with matching, the workers stopped at the
+  end; its epoch's clips/s without the SK step;
+- dual_data: the same recipe with ``--dual_data true`` on 240 samples (two
+  30-frame clips and a 2-channel spectrogram a sample): BN warmup, one SK
+  step, an epoch; then the step on a resident batch and its peak memory;
 - the packed path: a shard of the same recipe written by ``python -m
   selavi_tpu_torch.cli.pack_dataset`` (480 synthetic samples, 30 frames
   stored at 160x160 in YUV 4:2:0, 48000 int16 PCM samples each), then the
@@ -44,7 +55,10 @@ filters, z-normalized) and the card's YUV decode against its CPU result
 at ``[24, 30, 112, 112]``, and prints which real-media decoders the
 machine has (the real-media path itself is held against the JAX package
 by the CPU tests).
-Then it times the SK kernel and the train step. For the SK kernel it also
+Then it times the SK kernel and the train step, and the synthetic epoch
+with the host's native data runtime on threads, then with its numpy twins,
+then twice native on spawned worker processes. For
+the SK kernel it also
 holds the library's tiling (``sk_plan``) against ``plan()`` at every shape
 it compares, checks that an M off a 16-byte boundary is refused and that
 the solver and the main path launch the kernel once an iteration, and
@@ -64,6 +78,7 @@ import contextlib
 import json
 import logging
 import math
+import os
 import shutil
 import signal
 import sys
@@ -84,6 +99,13 @@ MAIN_ARGS = (
     "--workers 8 --base_lr 0.01 --wd 0.00001 --seed 31"
 )
 PREEMPT_STEP = 2  # run 1 gets SIGUSR1 after this many steps of epoch 1
+# The loader modes on the main path's recipe: spawned workers (the
+# recipe's 8), each loaded batch trained twice, one copy to the card a batch.
+LOADER_MODE_ARGS = ("--worker_mode process --data_echo 2 "
+                    "--coalesce_transfers true")
+# --dual_data on the main path's recipe (two 30-frame clips and two audio
+# channels a sample, batch 24), cut to 240 samples (epochs of 10 steps).
+DUAL_SAMPLES = 240
 # The packed path: the same recipe from a shard that stores the video at
 # the top of train_scale_range(112) in YUV 4:2:0 and the audio as int16 PCM.
 PACK_ARGS = ("--train_crop_size 160 --pack_video_format yuv420 "
@@ -287,6 +309,58 @@ def solver_fused_vs_plain(torch, sf, device, report):
           f"{t_bf16:.3f} s ({fused16.iters / t_bf16:.1f} it/s)", flush=True)
 
 
+@contextlib.contextmanager
+def numpy_host():
+    """Run the host's data runtime on its numpy twins (the C++ library
+    reported unavailable) inside the block."""
+    from selavi_tpu_torch import native
+
+    load = native._load
+    native._load = lambda: None
+    try:
+        yield
+    finally:
+        native._load = load
+
+
+@contextlib.contextmanager
+def record_matcher(rec):
+    """Time the modality matcher inside the block: each head's cost matrix
+    (kept in ``rec["costs"]``), the swap search by its route (``native``:
+    the C++ library, ``python``: the loop) and ``match_order`` as a
+    whole."""
+    from selavi_tpu_torch import native
+    from selavi_tpu_torch.selflabel import engine, matching
+
+    rec.update(costs=[], native_s=0.0, python_s=0.0, total_s=0.0)
+    wrapped = {}
+
+    def timed(owner, name, key):
+        inner = getattr(owner, name)
+        wrapped[(owner, name)] = inner
+
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = inner(*args, **kwargs)
+            if key == "costs":
+                rec["costs"].append(out.cpu().numpy())
+            else:
+                rec[key] += time.perf_counter() - t0
+            return out
+
+        setattr(owner, name, call)
+
+    timed(matching, "column_cost_matrix", "costs")
+    timed(native, "greedy_swap_match_native", "native_s")
+    timed(matching, "greedy_swap_match", "python_s")
+    timed(engine, "match_order", "total_s")
+    try:
+        yield rec
+    finally:
+        for (owner, name), inner in wrapped.items():
+            setattr(owner, name, inner)
+
+
 def _run_cli(cli_main, argv, trainer_cls):
     """``python -m selavi_tpu_torch.cli.main <argv>`` in this process, with
     the CLI's Trainer replaced by ``trainer_cls``; returns the SystemExit
@@ -317,7 +391,6 @@ def cli_path(torch, sf, device, report, dump):
     checkpoint into a fresh Trainer; run 2 resumes and traces epoch 1. The
     SK kernel's count must move in run 1 and stay at 0 in run 2. Returns
     the fresh Trainer."""
-    import os
     import pickle
 
     import numpy as np
@@ -351,8 +424,10 @@ def cli_path(torch, sf, device, report, dump):
 
     sf.reset_launches()
     ckpt.reset_timings()
+    matcher: dict = {}
     t0 = time.perf_counter()
-    code, trainer = _run_cli(cli_main, argv, Preempted)
+    with record_matcher(matcher):
+        code, trainer = _run_cli(cli_main, argv, Preempted)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = sf.launches
@@ -390,6 +465,7 @@ def cli_path(torch, sf, device, report, dump):
     check(os.path.isfile(os.path.join(dump, "checkpoints", "ckp-0.pth")),
           "run 1 archived epoch 0")
     nbytes = os.path.getsize(path)
+    matcher_line(matcher, args.headcount, report)
     for name, rec in zip(("epoch 0", "preemption"), saves):
         print(f"save_checkpoint ({name}) on {report['card']}: held the step "
               f"loop {rec['hold_s']:.3f} s, async write {rec['write_s']:.3f} "
@@ -498,13 +574,183 @@ def cli_path(torch, sf, device, report, dump):
     return fresh
 
 
+def matcher_line(rec, heads, report):
+    """Print the SK step's matcher: its route and seconds for the heads,
+    and the Python loop's seconds on the same cost matrices."""
+    import numpy as np
+
+    from selavi_tpu_torch import native
+    from selavi_tpu_torch.selflabel import matching
+
+    route = "native" if rec["native_s"] > 0 and rec["python_s"] == 0 \
+        else "python"
+    t0 = time.perf_counter()
+    for cost in rec["costs"]:
+        matching.greedy_swap_match(cost, rng=np.random.default_rng(0))
+    loop_s = time.perf_counter() - t0
+    print(f"matcher in the SK step on {report['card']}'s host: "
+          f"{len(rec['costs'])} heads at K={rec['costs'][0].shape[0]}, "
+          f"route {route}, search {rec[route + '_s']:.4f} s, match_order "
+          f"{rec['total_s']:.4f} s (cost matrices included); the Python "
+          f"loop on the same {len(rec['costs'])} cost matrices "
+          f"{loop_s:.3f} s", flush=True)
+    check(len(rec["costs"]) == heads, f"{heads} heads matched")
+    check(route == "native" and native.available(),
+          "the SK step matched on the native route")
+    report["matcher"] = {"route": route, "search_s": rec[route + "_s"],
+                         "total_s": rec["total_s"], "python_loop_s": loop_s}
+
+
+def loader_modes_path(torch, sf, device, report, tmp):
+    """Phase 3b: the CLI at full width with spawned loader workers, data
+    echo 2 and coalesced transfers (one epoch, BN warmup, one SK step with
+    matching). Every step trains, each loaded batch twice; the workers stop
+    when the run ends."""
+    import multiprocessing
+
+    from selavi_tpu_torch.cli import main as cli_main
+    from selavi_tpu_torch.train import loop
+
+    argv = MAIN_ARGS.split() + LOADER_MODE_ARGS.split() + [
+        "--dump_path", os.path.join(tmp, "modes")]
+    rec = {"steps": 0, "epoch_s": 0.0, "sk_s": 0.0, "batches": []}
+
+    class Timed(loop.Trainer):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            inner = self.train_step
+
+            def train_step(batch, labels, gen):
+                rec["steps"] += 1
+                rec["batches"].append(batch["index"].clone())  # no sync
+                return inner(batch, labels, gen)
+
+            self.train_step = train_step
+
+        def maybe_cluster(self, iteration):
+            # synchronised only when the SK step ran: a sync on every call
+            # would charge the steps queued before it to the SK step
+            t0 = time.perf_counter()
+            ran = super().maybe_cluster(iteration)
+            if ran:
+                torch.cuda.synchronize()
+                rec["sk_s"] += time.perf_counter() - t0
+            return ran
+
+        def train_epoch(self, epoch):
+            rec["steps"] = 0
+            t0 = time.perf_counter()
+            out = super().train_epoch(epoch)
+            torch.cuda.synchronize()
+            rec["epoch_s"] = time.perf_counter() - t0
+            return out
+
+    sf.reset_launches()
+    t0 = time.perf_counter()
+    code, trainer = _run_cli(cli_main, argv, Timed)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = sf.launches
+    loaded = len(trainer.loader)
+    clips = trainer.loader.batch_size
+    pool_closed = trainer.loader._pool is None
+    sk = [h for h in trainer.history if "sk_cost" in h]
+    losses = [h["loss"] for h in trainer.history if "loss" in h]
+    del trainer
+    alive = multiprocessing.active_children()
+    train_s = rec["epoch_s"] - rec["sk_s"]
+    report["modes_epoch_clips_per_s"] = rec["steps"] * clips / train_s
+    print(f"loader-modes CLI run ({LOADER_MODE_ARGS}): {wall:.1f} s, exit "
+          f"{code}, steps {rec['steps']} ({loaded} loaded batches x 2), SK "
+          f"steps {len(sk)}, fused SK launches {launches}, sk_time "
+          f"{sk[0]['sk_time'] if sk else None}; epoch {rec['epoch_s']:.2f} "
+          f"s of which SK {rec['sk_s']:.2f} s: "
+          f"{report['modes_epoch_clips_per_s']:.2f} clips/s trained "
+          f"({report['modes_epoch_clips_per_s'] / 2:.2f} clips/s loaded); "
+          f"workers stopped {pool_closed and not alive}", flush=True)
+    check(code is None, "the loader-modes run returns (exit 0)")
+    check(rec["steps"] == 2 * loaded, "data echo 2: two steps a batch")
+    check(all(torch.equal(a, b) for a, b in zip(rec["batches"][0::2],
+                                                rec["batches"][1::2])),
+          "each loaded batch trains twice in a row")
+    check(len(sk) == 1 and math.isfinite(sk[0]["sk_cost"]),
+          "one SK step, finite cost")
+    check(all(math.isfinite(x) for x in losses), "losses finite")
+    check(launches > 0 and launches == sk[0]["sk_iters_total"],
+          f"one fused SK launch per solver iteration: {launches} launches, "
+          f"{sk[0]['sk_iters_total']} iterations")
+    check(pool_closed and not alive, f"worker processes stopped: {alive}")
+    report["modes_launches"] = launches
+
+
+def dual_data_path(torch, sf, device, report, tmp):
+    """Phase 3c: ``--dual_data true`` at full width (batch 24, two 30-frame
+    clips a sample, a 2-channel audio stem) on DUAL_SAMPLES synthetic
+    samples through the CLI: BN warmup, one SK step, an epoch of train
+    steps; then the step on a resident batch and the peak memory."""
+    from selavi_tpu_torch.cli import main as cli_main
+    from selavi_tpu_torch.config import parse_arguments
+    from selavi_tpu_torch.data.factory import build_dataset
+    from selavi_tpu_torch.train import loop
+
+    argv = MAIN_ARGS.split() + [
+        "--dual_data", "true", "--num_data_samples", str(DUAL_SAMPLES),
+        "--dump_path", os.path.join(tmp, "dual")]
+    fed = []
+
+    class Recorded(loop.Trainer):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            for net in (self.model.video_network, self.model.audio_network):
+                net.register_forward_pre_hook(
+                    lambda mod, inp: fed.append((type(mod).__name__,
+                                                 tuple(inp[0].shape),
+                                                 mod.training)))
+
+    torch.cuda.reset_peak_memory_stats()
+    sf.reset_launches()
+    t0 = time.perf_counter()
+    code, trainer = _run_cli(cli_main, argv, Recorded)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = sf.launches
+    sk = [h for h in trainer.history if "sk_cost" in h]
+    losses = [h["loss"] for h in trainer.history if "loss" in h]
+    stem = tuple(trainer.model.audio_network.stem.conv.weight.shape)
+    del trainer
+    cli_peak = torch.cuda.max_memory_allocated() / 1e9
+    train_fed = sorted({(n, s) for n, s, training in fed if training})
+    print(f"dual_data CLI run (--dual_data true, {DUAL_SAMPLES} samples): "
+          f"{wall:.1f} s, exit {code}, SK steps {len(sk)}, fused SK "
+          f"launches {launches}, audio stem {stem}, fed in train mode "
+          f"{train_fed}", flush=True)
+    check(code is None, "the dual_data run returns (exit 0)")
+    check(stem[1] == 2, "a 2-channel audio stem")
+    check(train_fed == [("AudioResNet", (24, 257, 99, 2)),
+                        ("R2Plus1D18", (24, 60, 112, 112, 3))],
+          "two clips a sample reach both towers")
+    check(len(sk) == 1 and math.isfinite(sk[0]["sk_cost"])
+          and launches == sk[0]["sk_iters_total"] > 0,
+          "one SK step, one fused launch per iteration")
+    check(all(math.isfinite(x) for x in losses), "dual losses finite")
+
+    args = parse_arguments().parse_args(argv)
+    fresh = loop.Trainer(args, build_dataset(args))
+    time_train(torch, fresh, report, prefix="dual_", epoch=False)
+    print(f"dual_data train on {report['card']}: "
+          f"{report['dual_train_clips_per_s']:.2f} samples/s (train step on "
+          f"a resident batch of 24 samples, 2 x 30 frames each, bf16), "
+          f"peak memory {report['dual_peak_mem_gb']:.2f} GB in the step, "
+          f"{cli_peak:.2f} GB over the CLI run", flush=True)
+    del fresh
+
+
 def trace_split(torch, trace_path, traces, report, key="trace"):
     """The traced epoch's device time: the ten device operations (kernels,
     copies, fills) that took the most, from the Chrome trace the CLI
     wrote, and the ten host ops whose kernels took the most, from
     ``key_averages()``."""
     import json
-    import os
 
     check(os.path.isfile(trace_path), f"the trace {trace_path} exists")
     with open(trace_path) as f:
@@ -551,12 +797,13 @@ def trace_split(torch, trace_path, traces, report, key="trace"):
               f"  {e.key} x{e.count}", flush=True)
 
 
-def time_train(torch, trainer, report, prefix=""):
+def time_train(torch, trainer, report, prefix="", epoch=True):
     """Phase 4b: train clips/s, on a device-resident batch as the loader
-    gives it (a wire-format batch is decoded in the timed step) and over a
-    full epoch. Returns the resident batch."""
+    gives it (a wire-format batch is decoded in the timed step) and, with
+    ``epoch``, over a full epoch. Returns the resident batch."""
     from selavi_tpu_torch.data.loader import decode_wire_batch
 
+    torch.cuda.reset_peak_memory_stats()
     batch = next(iter(trainer.loader))
     labels = torch.zeros(batch["index"].shape[0], trainer.args.headcount,
                          dtype=torch.long, device=trainer.device)
@@ -571,21 +818,24 @@ def time_train(torch, trainer, report, prefix=""):
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / steps
     clips = batch["index"].shape[0]
+    report[prefix + "train_clips_per_s"] = clips / step_s
+    report[prefix + "peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if not epoch:
+        return batch
     t0 = time.perf_counter()
     trainer.train_epoch(1)
     torch.cuda.synchronize()
     epoch_s = time.perf_counter() - t0
     n_epoch = trainer.batches_per_epoch * clips
-    report[prefix + "train_clips_per_s"] = clips / step_s
     report[prefix + "epoch_clips_per_s"] = n_epoch / epoch_s
-    report["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     return batch
 
 
 def frontend_and_yuv(torch, device, report):
     """Phase 6: the card's audio frontend (``prepare_audio`` on int16-range
-    PCM) against the host's numpy ``get_spec`` of each clip, and the card's
-    YUV 4:2:0 decode against its CPU result, bit for bit."""
+    PCM) against the host's numpy float64 ``get_spec`` of each clip (the
+    host's native route timed beside it), and the card's YUV 4:2:0 decode
+    against its CPU result, bit for bit."""
     import numpy as np
 
     from selavi_tpu_torch.data.audio import get_spec
@@ -598,11 +848,18 @@ def frontend_and_yuv(torch, device, report):
     tone = 6000 * np.sin(2 * np.pi * rng.uniform(100, 8000, (24, 1)) * t)
     pcm = np.clip(np.round(tone + rng.standard_normal((24, PCM_SAMPLES))
                            * 3000), -32768, 32767).astype(np.int16)
-    t0 = time.perf_counter()
-    host = np.stack([get_spec(clip, 0.0, num_sec=1, sample_rate=48000,
-                              aud_spec_type=2, z_normalize=True)[0]
-                     for clip in pcm])
-    host_ms = (time.perf_counter() - t0) * 1e3
+
+    def host_specs():
+        t0 = time.perf_counter()
+        out = np.stack([get_spec(clip, 0.0, num_sec=1, sample_rate=48000,
+                                 aud_spec_type=2, z_normalize=True)[0]
+                        for clip in pcm])
+        return out, (time.perf_counter() - t0) * 1e3
+
+    native_spec, native_ms = host_specs()
+    with numpy_host():
+        host, host_ms = host_specs()
+    native_err = float(np.abs(native_spec - host).max())
     pcm_dev = torch.from_numpy(pcm).to(device)
     spec = prepare_audio(pcm_dev, torch.float32, FRONTEND_CFG)
     torch.cuda.synchronize()
@@ -615,12 +872,15 @@ def frontend_and_yuv(torch, device, report):
                  reps=20)
     print(f"audio frontend on {report['card']}: 24 clips of {PCM_SAMPLES} "
           f"int16 samples -> [24, 257, 99, 1] in {ms:.4f} ms per batch on "
-          f"the card (the host's numpy get_spec: {host_ms:.1f} ms); max "
-          f"|card - host| {err.max():.3g} (tolerance {FRONTEND_ATOL} + "
-          f"{FRONTEND_RTOL} x |host|), within {within}", flush=True)
+          f"the card (the host's get_spec: {native_ms:.1f} ms native, "
+          f"{host_ms:.1f} ms numpy); max |card - host numpy| "
+          f"{err.max():.3g} (tolerance {FRONTEND_ATOL} + {FRONTEND_RTOL} x "
+          f"|host|), within {within}; max |host native - host numpy| "
+          f"{native_err:.3g}", flush=True)
     check(bool(np.isfinite(got).all()), "the frontend's output is finite")
     check(within, "the card's frontend matches the host's spectrogram")
     report["frontend_ms"] = ms
+    report["host_spec_ms"] = {"native": native_ms, "numpy": host_ms}
 
     y = torch.randint(0, 256, (24, 30, 112, 112), dtype=torch.uint8,
                       generator=torch.Generator().manual_seed(1))
@@ -672,7 +932,6 @@ def packed_path(torch, sf, device, report, tmp):
     SK step); a fresh Trainer restored from its checkpoint times the step
     on a resident wire-format batch and an epoch; the CLI resumed with
     ``--trace_profile true`` traces epoch 1 with the ops' input shapes."""
-    import os
 
     from selavi_tpu_torch.cli import main as cli_main
     from selavi_tpu_torch.cli import pack_dataset
@@ -960,7 +1219,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from selavi_tpu_torch import measure
+    from selavi_tpu_torch import measure, native
+    from selavi_tpu_torch.ops import _build
     from selavi_tpu_torch.ops import conv3x3 as conv
     from selavi_tpu_torch.ops import sinkhorn_fused as sf
 
@@ -978,12 +1238,18 @@ def main() -> int:
     print("tf32: matmul off, cudnn off", flush=True)
     device = torch.device("cuda", 0)
 
-    # One nvcc per source, started together.
+    # One nvcc per source and g++ for the host data runtime, started
+    # together.
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        libs = list(pool.map(lambda m: m.build_library(), (sf, conv)))
+    with ThreadPoolExecutor(3) as pool:
+        libs = list(pool.map(lambda m: m.build_library(),
+                             (sf, conv, native)))
     print(f"built {', '.join(lib.name for lib in libs)} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"host data runtime: {libs[2].name} (g++ "
+          f"{' '.join(_build.GXX_FLAGS)}), available {native.available()}",
+          flush=True)
+    check(native.available(), "the host data runtime loads")
 
     inputs = kernel_vs_plain(torch, sf, device, report)
     solver_fused_vs_plain(torch, sf, device, report)
@@ -1001,12 +1267,13 @@ def main() -> int:
     finally:
         _restore_process_state()
         shutil.rmtree(dump, ignore_errors=True)
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_packed_")
-    try:
-        packed_path(torch, sf, device, report, tmp)
-    finally:
-        _restore_process_state()
-        shutil.rmtree(tmp, ignore_errors=True)
+    for phase in (loader_modes_path, dual_data_path, packed_path):
+        tmp = tempfile.mkdtemp(prefix=f"chip_smoke_{phase.__name__}_")
+        try:
+            phase(torch, sf, device, report, tmp)
+        finally:
+            _restore_process_state()
+            shutil.rmtree(tmp, ignore_errors=True)
     conv_probe_path(torch, conv, measure, device, report)
 
     # Phase 4a: the SK kernel at paper scale, against its byte bound.
@@ -1058,11 +1325,36 @@ def main() -> int:
           flush=True)
 
     time_train(torch, trainer, report)
+    # the same epoch with the host's numpy twins of the data runtime
+    with numpy_host():
+        t0 = time.perf_counter()
+        trainer.train_epoch(1)
+        torch.cuda.synchronize()
+    numpy_epoch = (trainer.batches_per_epoch * trainer.loader.batch_size
+                   / (time.perf_counter() - t0))
+    # and with the recipe's 8 workers as spawned processes: the first
+    # epoch starts them, the second finds them running
+    trainer.loader.worker_mode = "process"
+    process_epochs = []
+    try:
+        for _ in range(2):
+            t0 = time.perf_counter()
+            trainer.train_epoch(1)
+            torch.cuda.synchronize()
+            process_epochs.append(trainer.batches_per_epoch
+                                  * trainer.loader.batch_size
+                                  / (time.perf_counter() - t0))
+    finally:
+        trainer.loader.close()
     print(f"train on {card}: {report['train_clips_per_s']:.2f} clips/s "
           f"(train step, device-resident batch, bf16), "
           f"{report['epoch_clips_per_s']:.2f} clips/s (epoch with the "
-          f"synthetic host loader), peak memory "
-          f"{report['peak_mem_gb']:.2f} GB", flush=True)
+          f"synthetic host loader, native host runtime, 8 threads), "
+          f"{numpy_epoch:.2f} clips/s (the next epoch, numpy host runtime), "
+          f"{process_epochs[0]:.2f} and {process_epochs[1]:.2f} clips/s (the "
+          f"next two, native, on 8 spawned worker processes, started in the "
+          f"first), peak memory {report['peak_mem_gb']:.2f} GB in the step "
+          f"and the first epoch", flush=True)
 
     fp32 = times[torch.float32]
     kernels = [{

@@ -3,9 +3,10 @@
 The port's Trainer reads the same ``args`` namespace as the JAX package's,
 so recipes carry over. ``--sk_backend`` also takes the port's own names
 (``fused``, ``plain``) beside the JAX ones (``pallas``, ``xla``), which
-mean the same backends here. Flags for paths the port does not run yet (mesh,
-coalesced transfers, process workers, data echo) are kept so that one
-command line serves both packages.
+mean the same backends here. Flags for paths the port does not run yet (the
+mesh's model axis, the SK batch cache) are kept so that one command line
+serves both packages; the Trainer refuses a value other than their
+default (``train/loop.py::UNPORTED_FLAGS``).
 """
 
 from __future__ import annotations
@@ -207,9 +208,10 @@ def parse_arguments() -> argparse.ArgumentParser:
                              "writes are still atomic and flushed before "
                              "exit/preemption")
     parser.add_argument("--coalesce_transfers", type="bool", default="True",
-                        help="pack each batch into one [B, rec_bytes] uint8 "
-                             "buffer = ONE H2D transfer per step (bit-exact; "
-                             "1.9x end-to-end on latency-limited links)")
+                        help="pack each batch into one pinned uint8 buffer, "
+                             "field after field, for ONE host-to-card copy "
+                             "per batch, split on the card into views "
+                             "(bit-exact)")
     parser.add_argument("--data_echo", type=int, default=1,
                         help="train this many steps per loaded batch, each "
                              "with fresh on-device augmentations (data "

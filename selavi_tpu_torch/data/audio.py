@@ -11,11 +11,11 @@ eps-floored log) with ``nfilt`` 40 (spec type 1) or 257 (spec type 2),
 transposed to ``[nfilt, T]`` (T = 99 frames per second), optional
 z-normalization ``(x - 1.93) / 17.89``.
 
-The host computes the filterbank in numpy float64 here; the JAX package
-uses its C++ data runtime when built, which the port has not yet (ROADMAP
-Queue 1 item 4). With ``--device_spectrogram`` the host only slices and
-jitters the waveform (``slice_clip_pcm``) and the card computes the
-spectrogram (``selavi_tpu_torch.ops.logmel``).
+The host computes the filterbank in the C++ data runtime
+(``selavi_tpu_torch.native``) when g++ built it, as the JAX package does,
+and in numpy float64 otherwise. With ``--device_spectrogram`` the host
+only slices and jitters the waveform (``slice_clip_pcm``) and the card
+computes the spectrogram (``selavi_tpu_torch.ops.logmel``).
 """
 
 from __future__ import annotations
@@ -94,6 +94,23 @@ def logfbank(signal: np.ndarray, samplerate: int = 16000,
     return np.log(feat)
 
 
+def _logfbank_fast(wav: np.ndarray, sample_rate: int,
+                   nfilt: int) -> np.ndarray:
+    """``logfbank`` of one clip, ``[T, nfilt]``: the C++ data runtime's
+    float32 FFT when it is built (one sample, one thread: this runs per
+    example inside loader workers that are already parallel), numpy
+    float64 otherwise."""
+    from selavi_tpu_torch import native
+
+    if native.available():
+        out = native.logfbank_batch_native(
+            wav[None].astype(np.float32), sample_rate, nfilt=nfilt,
+            nthreads=1)
+        return out[0].T
+    return logfbank(wav, sample_rate, winlen=0.02, winstep=0.01,
+                    nfilt=nfilt, nfft=1024)
+
+
 def _clip_window(wav: np.ndarray, fr_sec: float, num_sec: int,
                  sample_rate: int) -> np.ndarray:
     """Exactly ``num_sec * sample_rate`` samples starting near ``fr_sec``,
@@ -123,8 +140,7 @@ def get_spec(wav: np.ndarray, fr_sec: float, num_sec: int = 1,
     if use_volume_jittering:
         wav = wav * rng.uniform(0.9, 1.1)
     nfilt = 40 if aud_spec_type == 1 else 257
-    spec = logfbank(np.asarray(wav, np.float64), sample_rate, winlen=0.02,
-                    winstep=0.01, nfilt=nfilt, nfft=1024)
+    spec = _logfbank_fast(np.asarray(wav, np.float64), sample_rate, nfilt)
     spec = spec.astype(np.float32).T[None, :, :]  # [1, nfilt, T]
     if z_normalize:
         spec = (spec - 1.93) / 17.89

@@ -37,7 +37,10 @@ def build_dataset(args, mode: str = "train", eval_mode: bool = False):
             aud_spec_type=args.aud_spec_type,
             z_normalize=args.z_normalize,
             seed=getattr(args, "seed", 31),
+            mode="val" if eval_mode else mode,
             return_pcm=return_pcm,
+            dual_data=(not eval_mode
+                       and bool(getattr(args, "dual_data", False))),
         )
     from selavi_tpu_torch.data.dataset import AVideoDataset
 
@@ -110,3 +113,31 @@ def audio_cfg_from_args(args) -> dict:
         "nfilt": 40 if args.aud_spec_type == 1 else 257,
         "z_normalize": args.z_normalize,
     }
+
+
+def example_shapes(args, dataset) -> tuple[tuple, tuple]:
+    """``(video_shape, audio_spec_shape)`` of a batch of 2 as the model sees
+    it, from example 0 (``selavi_tpu/data/factory.py::example_shapes``):
+    spectrogram and PCM datasets, RGB and YUV video, one clip or two
+    (dual_data: 2T frames, and a 2-channel spectrogram)."""
+    import numpy as np
+
+    from selavi_tpu_torch.data.audio import spec_num_frames
+
+    example = dataset.get_example(0, np.random.default_rng(0))
+    if "video" in example:
+        video_shape = (2,) + example["video"].shape
+    else:  # YUV 4:2:0 wire format
+        video_shape = (2,) + example["video_y"].shape + (3,)
+    if "audio" in example:
+        audio = example["audio"]
+        shape = audio.shape if audio.ndim == 3 else audio.shape + (1,)
+        return video_shape, (2,) + shape
+    # the card's frontend (train/step.py::prepare_audio) maps PCM [S] to
+    # a spectrogram [F, T, 1] and dual PCM [2, S] to [F, T, 2]
+    pcm = example["audio_pcm"]
+    n_clips = pcm.shape[0] if pcm.ndim == 2 else 1
+    nfilt = 40 if args.aud_spec_type == 1 else 257
+    return video_shape, (2, nfilt,
+                         spec_num_frames(args.num_sec_aud,
+                                         args.aud_sample_rate), n_clips)

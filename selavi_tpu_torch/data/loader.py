@@ -1,4 +1,4 @@
-"""Batch loader: seeded per-epoch shuffle, host threads, pinned H2D.
+"""Batch loader: seeded per-epoch shuffle, host workers, pinned H2D.
 
 The port's counterpart of ``selavi_tpu/data/loader.py`` for one process:
 the same order (``default_rng((seed, epoch)).permutation(N)``) and the same
@@ -8,13 +8,27 @@ the same samples as the JAX package. Batches are collated to
     {"video": uint8 [B,T,H,W,3]            (or, from a yuv420 shard,
                                             "video_y" uint8 [B,T,H,W] and
                                             "video_uv" uint8 [B,T,H/2,W/2,2]),
-     "audio": fp32 [B,F,T,1]               (or "audio_pcm" [B,S]: int16 as
-                                            stored, fp32 otherwise),
+     "audio": fp32 [B,F,T,C]               (or "audio_pcm" [B,S] / [B,2,S]:
+                                            int16 as stored, fp32 otherwise),
      "label": int64 [B], "index": int64 [B], "vid_idx": int64 [B]}
 
-and copied to the device from pinned memory with ``non_blocking``. Example
-rendering runs on ``num_workers`` threads (numpy releases the GIL for the
-heavy parts), ``prefetch`` batches ahead of the consumer.
+and copied to the device from pinned memory with ``non_blocking``.
+
+Examples are rendered ``prefetch`` batches ahead of the consumer, on
+``num_workers`` threads (``worker_mode="thread"``; numpy releases the GIL
+for the heavy parts) or spawned processes (``"process"``: no GIL, at the
+cost of pickling each example back; the dataset must be picklable, and a
+packed shard, which holds an mmap, is not, as in the JAX package). Either
+mode yields the same batches bit for bit. Workers never touch the card:
+collation, pinning and the copy stay in the consumer's process.
+
+With ``coalesce`` (``--coalesce_transfers``, the default) a batch goes to
+the card in one copy (``coalesce_batch``). Its buffer is field-major, not
+the JAX package's row-major ``[B, rec_bytes]``: each field is one
+contiguous run of bytes at a 64-byte aligned offset, so on the card every
+field is a zero-copy ``view`` of the buffer (a strided byte column of the
+row layout would need a ``contiguous()`` copy per field to be read as
+int16 or fp32).
 
 The wire formats stay compact until they are on the device:
 ``decode_wire_batch`` (the JAX package's ``decode_wire_batches``) turns the
@@ -25,6 +39,8 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures as cf
+import multiprocessing
+import os
 from typing import Iterator
 
 import numpy as np
@@ -32,11 +48,58 @@ import torch
 
 from selavi_tpu_torch.ops.preprocess import yuv420_to_rgb_batch
 
+FIELD_ALIGN = 64  # bytes: every field of a coalesced buffer starts aligned
+
+_WORKER_DATASET = None
+
+
+def _process_worker_init(dataset) -> None:
+    """Runs first in each spawned worker: hide the card from the worker
+    before anything could initialise CUDA there (workers only render
+    examples in numpy), and hold the dataset once instead of pickling it
+    with every task."""
+    global _WORKER_DATASET
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    _WORKER_DATASET = dataset
+
+
+def _process_fetch(idx: int, seed: tuple) -> dict:
+    return _WORKER_DATASET.get_example(int(idx), np.random.default_rng(seed))
+
+
+def coalesce_batch(host: dict, device) -> dict:
+    """Host arrays -> tensors on ``device`` through ONE buffer: the fields
+    are packed field-major into one uint8 buffer (pinned for a CUDA
+    device), copied with one ``non_blocking`` copy, and split on the device
+    into views, bit for bit the arrays given."""
+    device = torch.device(device)
+    layout, total = [], 0
+    for key in sorted(host):
+        a = np.ascontiguousarray(host[key])
+        layout.append((key, a, total))
+        total += -(-a.nbytes // FIELD_ALIGN) * FIELD_ALIGN
+    buf = torch.empty(total, dtype=torch.uint8,
+                      pin_memory=device.type == "cuda")
+    flat = buf.numpy()
+    for _, a, off in layout:
+        flat[off:off + a.nbytes] = a.reshape(-1).view(np.uint8)
+    if device.type == "cuda":
+        buf = buf.to(device, non_blocking=True)
+    out = {}
+    for key, a, off in layout:
+        dtype = torch.from_numpy(a[:0]).dtype
+        out[key] = buf[off:off + a.nbytes].view(dtype).view(a.shape)
+    return out
+
 
 class DataLoader:
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  drop_last: bool = True, num_workers: int = 0, seed: int = 0,
-                 device="cpu", prefetch: int = 2):
+                 device="cpu", prefetch: int = 2, worker_mode: str = "thread",
+                 coalesce: bool = True):
+        if worker_mode not in ("thread", "process"):
+            raise ValueError(f"worker_mode {worker_mode!r}: thread or "
+                             f"process")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -45,7 +108,10 @@ class DataLoader:
         self.seed = seed
         self.device = torch.device(device)
         self.prefetch = max(1, prefetch)
+        self.worker_mode = worker_mode
+        self.coalesce = coalesce
         self.epoch = 0
+        self._pool = None
 
     def set_epoch(self, epoch: int) -> None:
         self.epoch = epoch
@@ -65,6 +131,22 @@ class DataLoader:
     def _fetch(self, i: int) -> dict:
         rng = np.random.default_rng((self.seed, self.epoch, int(i)))
         return self.dataset.get_example(int(i), rng)
+
+    def _get_pool(self) -> cf.ProcessPoolExecutor:
+        """The spawned worker processes, started at the first process-mode
+        epoch and kept until ``close()``."""
+        if self._pool is None:
+            self._pool = cf.ProcessPoolExecutor(
+                self.num_workers,
+                mp_context=multiprocessing.get_context("spawn"),
+                initializer=_process_worker_init, initargs=(self.dataset,))
+        return self._pool
+
+    def close(self) -> None:
+        """Stop the worker processes, if any were started."""
+        if self._pool is not None:
+            self._pool.shutdown(cancel_futures=True)
+            self._pool = None
 
     def _collate(self, examples) -> dict:
         host = {}
@@ -86,6 +168,8 @@ class DataLoader:
             host["audio"] = audio.astype(np.float32)
         for key in ("label", "index", "vid_idx"):
             host[key] = np.asarray([e[key] for e in examples], np.int64)
+        if self.coalesce:
+            return coalesce_batch(host, self.device)
         host = {k: torch.from_numpy(v) for k, v in host.items()}
         if self.device.type != "cuda":
             return host
@@ -101,14 +185,25 @@ class DataLoader:
             for idxs in batches:
                 yield self._collate([self._fetch(i) for i in idxs])
             return
+        if self.worker_mode == "process":
+            pool = self._get_pool()
+            yield from self._pipelined(batches, lambda i: pool.submit(
+                _process_fetch, int(i), (self.seed, self.epoch, int(i))))
+            return
         with cf.ThreadPoolExecutor(self.num_workers) as pool:
-            pending = collections.deque()
-            for idxs in batches:
-                pending.append([pool.submit(self._fetch, i) for i in idxs])
-                if len(pending) > self.prefetch:
-                    yield self._collate([f.result() for f in pending.popleft()])
-            while pending:
+            yield from self._pipelined(
+                batches, lambda i: pool.submit(self._fetch, i))
+
+    def _pipelined(self, batches, submit) -> Iterator[dict]:
+        """Keep ``prefetch`` batches of examples in flight on the workers
+        and collate them in order."""
+        pending = collections.deque()
+        for idxs in batches:
+            pending.append([submit(i) for i in idxs])
+            if len(pending) > self.prefetch:
                 yield self._collate([f.result() for f in pending.popleft()])
+        while pending:
+            yield self._collate([f.result() for f in pending.popleft()])
 
 
 def decode_wire_batch(batch: dict) -> dict:

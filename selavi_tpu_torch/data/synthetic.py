@@ -1,13 +1,15 @@
 """Synthetic audio-visual dataset: correlated modalities, known clusters.
 
-The port's copy of ``selavi_tpu/data/synthetic.py`` (one clip per sample;
-the dual-clip variant is not ported). Audio is a spectrogram, or with
-``return_pcm`` the raw clip waveform for the card's frontend. A
-synthetic in-memory AV dataset (random frames + sine-wave audio) smokes
-the full training loop without media files or decode libraries. Each
-sample's class drives both a visual signature (colored moving square on
-textured background) and an audio signature (class-specific sine
-frequency), so self-labeling has real cross-modal structure to discover.
+The port's copy of ``selavi_tpu/data/synthetic.py``. Audio is a
+spectrogram, or with ``return_pcm`` the raw clip waveform for the card's
+frontend; with ``dual_data`` (train mode) every sample carries two clips,
+concatenated along time, and two audio clips (channel-stacked
+spectrograms ``[F, T, 2]`` or PCM ``[2, S]``). A synthetic in-memory AV
+dataset (random frames + sine-wave audio) smokes the full training loop
+without media files or decode libraries. Each sample's class drives both a
+visual signature (colored moving square on textured background) and an
+audio signature (class-specific sine frequency), so self-labeling has real
+cross-modal structure to discover.
 
 Deterministic per (index, clip draw): content depends only on the index and
 the RNG handed in, so eval re-reads are reproducible.
@@ -38,8 +40,11 @@ class SyntheticAVDataset:
         aud_spec_type: int = 1,
         z_normalize: bool = False,
         seed: int = 0,
+        mode: str = "train",
         return_pcm: bool = False,
+        dual_data: bool = False,
     ):
+        self.dual_data = dual_data
         self.num_samples = num_samples
         self.num_classes = num_classes
         self.num_frames = num_frames
@@ -48,7 +53,9 @@ class SyntheticAVDataset:
         self.aud_sample_rate = aud_sample_rate
         self.aud_spec_type = aud_spec_type
         self.z_normalize = z_normalize
+        self.mode = mode
         self.return_pcm = return_pcm
+        self.name = "synthetic"
         # Signature v2 for high class counts: the v1 audio map
         # f0 = 110*2^(label/2) passes Nyquist at label ~= 2*log2(sr/220)
         # (label 14 at 24 kHz), after which classes alias onto each other,
@@ -65,6 +72,7 @@ class SyntheticAVDataset:
         ).astype(np.int64)
         # per-sample appearance variation
         self._phase = base.uniform(0, 2 * np.pi, size=num_samples)
+        self.valid_indices = np.arange(num_samples)
 
     def __len__(self):
         return self.num_samples
@@ -100,98 +108,170 @@ class SyntheticAVDataset:
                 0.5 + 0.5 * np.sin(2 * np.pi * hue + 4.2),
             ]
         )
-        # uint8 noise background directly (float64 uniform draws dominated
-        # per-sample cost at paper-scale shapes)
-        video = rng.integers(0, 39, size=(t, c, c, 3), dtype=np.uint8)
-        color_u8 = (color * 255).astype(np.uint8)
-        radius = c // 4
-        sq = max(c // 8, 2)
-        if self._sig_v2:
-            # bounded speed (v1's 1+label aliases against t frames); orbit
-            # direction and a STATIC class-position marker square (4x4 grid
-            # cell = label % 16) carry the rest of the class identity
-            speed = 1.0 + (label % 12)
-            direction = 1.0 if (label // 12) % 2 == 0 else -1.0
-            gx, gy = label % 4, (label // 4) % 4
-            my = int((gy + 0.5) * c / 4)
-            mx = int((gx + 0.5) * c / 4)
-            msq = max(c // 16, 2)
-            video[
-                :,
-                max(my - msq, 0) : min(my + msq, c),
-                max(mx - msq, 0) : min(mx + msq, c),
-                :,
-            ] = color_u8
-        else:
-            speed = 1.0 + label
-            direction = 1.0
-        phase = self._phase[idx]
-        for f in range(t):
-            ang = phase + direction * speed * f / t * 2 * np.pi
-            cy = int(c / 2 + radius * np.sin(ang))
-            cx = int(c / 2 + radius * np.cos(ang))
-            y0, y1 = max(cy - sq, 0), min(cy + sq, c)
-            x0, x1 = max(cx - sq, 0), min(cx + sq, c)
-            video[f, y0:y1, x0:x1, :] = color_u8
+        num_clips = 2 if self.dual_data and self.mode == "train" else 1
+
+        def one_clip(phase):
+            # uint8 noise background directly (float64 uniform draws
+            # dominated per-sample cost at paper-scale shapes)
+            clip = rng.integers(0, 39, size=(t, c, c, 3), dtype=np.uint8)
+            color_u8 = (color * 255).astype(np.uint8)
+            radius = c // 4
+            sq = max(c // 8, 2)
+            if self._sig_v2:
+                # bounded speed (v1's 1+label aliases against t frames);
+                # orbit direction and a STATIC class-position marker
+                # square (4x4 grid cell = label % 16) carry the rest of
+                # the class identity
+                speed = 1.0 + (label % 12)
+                direction = 1.0 if (label // 12) % 2 == 0 else -1.0
+                gx, gy = label % 4, (label // 4) % 4
+                my = int((gy + 0.5) * c / 4)
+                mx = int((gx + 0.5) * c / 4)
+                msq = max(c // 16, 2)
+                clip[
+                    :,
+                    max(my - msq, 0) : min(my + msq, c),
+                    max(mx - msq, 0) : min(mx + msq, c),
+                    :,
+                ] = color_u8
+            else:
+                speed = 1.0 + label
+                direction = 1.0
+            for f in range(t):
+                ang = phase + direction * speed * f / t * 2 * np.pi
+                cy = int(c / 2 + radius * np.sin(ang))
+                cx = int(c / 2 + radius * np.cos(ang))
+                y0, y1 = max(cy - sq, 0), min(cy + sq, c)
+                x0, x1 = max(cx - sq, 0), min(cx + sq, c)
+                clip[f, y0:y1, x0:x1, :] = color_u8
+            return clip
+
+        # dual_data: two independently sampled clips of the same "video",
+        # concatenated along time (reference AVideoDataset.py:431-451).
+        # Clip 0 draws no extra RNG so the non-dual stream (and the
+        # seed-keyed quality records in BASELINE.md) stays bit-identical.
+        video = np.concatenate(
+            [
+                one_clip(
+                    self._phase[idx]
+                    if k == 0
+                    else self._phase[idx] + rng.uniform(0, 2 * np.pi)
+                )
+                for k in range(num_clips)
+            ],
+            axis=0,
+        )
 
         # --- audio: class-frequency sine + harmonics, int16 scale
         sr = self.aud_sample_rate
         dur = self.num_sec + 1  # file longer than the clip, like real videos
         if self._sig_v2:
-            # log-spaced fundamentals spanning [110, 0.35*sr]: distinct and
-            # alias-free for any class count
+            # log-spaced fundamentals spanning [110, 0.35*sr]: distinct
+            # and alias-free for any class count (v1's 2^(label/2) passes
+            # Nyquist at label ~14 @ 24 kHz)
             top = 0.35 * sr
             f0 = 110.0 * (top / 110.0) ** (
                 label / max(self.num_classes - 1, 1)
             )
             # drop the octave harmonic once it would fold over Nyquist
+            # (an aliased harmonic could land on another class's band)
             h_amp = 0.3 if 2 * f0 < 0.45 * sr else 0.0
         else:
             f0 = 110.0 * (2.0 ** (label / 2.0))
             h_amp = 0.3
 
         out = {
-            "video": video,  # [T, H, W, 3] uint8
+            "video": video,  # [T*num_clips, H, W, 3] uint8
             "label": label,
             "index": idx,
             "vid_idx": idx,
         }
-        if self._sig_v2:
-            # sample the class waveform on the clip window only: sine
-            # phases are absolute in time, so this is the same math
-            fr_sec = rng.uniform(0, dur - self.num_sec)
-            start = int(np.round(fr_sec * sr))
-            length = self.num_sec * sr
-            tt = (np.arange(start, start + length) / sr).astype(np.float32)
+        def synth(start_sample: int, length: int) -> np.ndarray:
+            """Sample the class waveform on [start, start+length) only —
+            sine phases are absolute in time, so windowed synthesis is
+            identical math at a fraction of the cost (the v1 path keeps
+            full-duration synthesis for bit-compat with <=12-class
+            records)."""
+            tt = (
+                np.arange(start_sample, start_sample + length) / sr
+            ).astype(np.float32)
             w = 0.6 * np.sin(
                 2 * np.pi * f0 * tt + self._phase[idx], dtype=np.float32
             ) + h_amp * np.sin(2 * np.pi * 2 * f0 * tt, dtype=np.float32)
             w += 0.05 * rng.standard_normal(length).astype(np.float32)
-            wav, fr_sec = w * 8000.0, 0.0
-        else:
-            # v1: full-duration float64 synthesis with fr_sec drawn AFTER
-            # the noise (the RNG consumption order of the <=12-class records)
-            tt = np.arange(dur * sr) / sr
-            wav = (
-                0.6 * np.sin(2 * np.pi * f0 * tt + self._phase[idx])
-                + h_amp * np.sin(2 * np.pi * 2 * f0 * tt)
-                + 0.05 * rng.standard_normal(len(tt))
-            )
-            wav = (wav * 8000).astype(np.float64)
-            fr_sec = rng.uniform(0, dur - self.num_sec)
-        if self.return_pcm:
-            # device-spectrogram path: the raw clip waveform; the card's
-            # frontend (ops/logmel.py) computes the spectrogram
-            fr = int(np.round(fr_sec * sr))
-            out["audio_pcm"] = wav[fr:fr + self.num_sec * sr].astype(
-                np.float32)
+            return w * 8000.0
+
+        if self._sig_v2:
+            fr_secs = [
+                rng.uniform(0, dur - self.num_sec)
+                for _ in range(num_clips)
+            ]
+            clips = [
+                synth(int(np.round(fs * sr)), self.num_sec * sr)
+                for fs in fr_secs
+            ]
+            if self.return_pcm:
+                out["audio_pcm"] = (
+                    clips[0].astype(np.float32)
+                    if num_clips == 1
+                    else np.stack(clips).astype(np.float32)
+                )
+            else:
+                specs = [
+                    get_spec(
+                        c,
+                        0.0,
+                        num_sec=self.num_sec,
+                        sample_rate=sr,
+                        aud_spec_type=self.aud_spec_type,
+                        z_normalize=self.z_normalize,
+                        rng=rng,
+                    )[0].astype(np.float32)
+                    for c in clips
+                ]
+                out["audio"] = (
+                    specs[0] if num_clips == 1 else np.stack(specs, axis=-1)
+                )
             return out
-        out["audio"] = get_spec(
-            wav,
-            fr_sec,
-            num_sec=self.num_sec,
-            sample_rate=sr,
-            aud_spec_type=self.aud_spec_type,
-            z_normalize=self.z_normalize,
-        )[0].astype(np.float32)  # [nfilt, T]
+
+        # v1: full-duration float64 synthesis with fr_secs drawn AFTER the
+        # noise — the RNG consumption order the <=12-class records pinned
+        tt = np.arange(dur * sr) / sr
+        wav = (
+            0.6 * np.sin(2 * np.pi * f0 * tt + self._phase[idx])
+            + h_amp * np.sin(2 * np.pi * 2 * f0 * tt)
+            + 0.05 * rng.standard_normal(len(tt))
+        )
+        wav = (wav * 8000).astype(np.float64)
+        fr_secs = [
+            rng.uniform(0, dur - self.num_sec) for _ in range(num_clips)
+        ]
+        if self.return_pcm:
+            # device-spectrogram path: ship the raw clip waveform; the
+            # fused on-device kernel (ops/logmel.py) computes the spec.
+            # dual_data: [2, S] — clip rows become spectrogram channels.
+            pcm = []
+            for fr_sec in fr_secs:
+                fr = int(np.round(fr_sec * sr))
+                pcm.append(
+                    wav[fr : fr + self.num_sec * sr].astype(np.float32)
+                )
+            out["audio_pcm"] = pcm[0] if num_clips == 1 else np.stack(pcm)
+        else:
+            specs = [
+                get_spec(
+                    wav,
+                    fr_sec,
+                    num_sec=self.num_sec,
+                    sample_rate=sr,
+                    aud_spec_type=self.aud_spec_type,
+                    z_normalize=self.z_normalize,
+                    rng=rng,
+                )[0].astype(np.float32)  # [nfilt, T]
+                for fr_sec in fr_secs
+            ]
+            # dual_data: channel-stacked [F, T, 2] (AVideoDataset.py:451)
+            out["audio"] = (
+                specs[0] if num_clips == 1 else np.stack(specs, axis=-1)
+            )
         return out

@@ -7,11 +7,11 @@ run on the host because they involve data-dependent shapes; the
 elementwise augmentations (flip, color jitter, grayscale, normalize) run
 fused on the device (``selavi_tpu_torch.ops.preprocess``).
 
-Frames are numpy uint8 ``[T, H, W, C]`` throughout. The bilinear resize is
-the vectorized numpy twin of the JAX package's C++ data-runtime kernel
-(``selavi_resize_bilinear_u8``): same taps, clamps and rounding. The port
-has no native data runtime (ROADMAP Queue 1 item 4), so this is its one
-resize.
+Frames are numpy uint8 ``[T, H, W, C]`` throughout. The bilinear resize
+runs in the C++ data runtime (``selavi_tpu_torch.native``) when g++ built
+it, as in the JAX package, and otherwise in ``_resize_frames``, its
+vectorized numpy twin: same taps, clamps and rounding (the two may differ
+by 1 in a uint8 value, rounded from another precision).
 """
 
 from __future__ import annotations
@@ -27,11 +27,17 @@ def resize_frames(frames: np.ndarray, new_h: int, new_w: int) -> np.ndarray:
     half-pixel centers, NO antialias — torch's default; PIL.BILINEAR
     would area-average on downscale, a different augmentation
     distribution)."""
+    from selavi_tpu_torch import native
+
+    if native.available():
+        # nthreads=1: this runs per sample inside loader workers that are
+        # already parallel; a thread pool per call would oversubscribe
+        return native.resize_bilinear_u8(frames, new_h, new_w, nthreads=1)
     return _resize_frames(frames, new_h, new_w)
 
 
 def _resize_frames(frames: np.ndarray, new_h: int, new_w: int) -> np.ndarray:
-    """Numpy twin of the JAX package's C++ kernel (data_runtime.cpp
+    """Numpy twin of the C++ kernel (``native/data_runtime.cpp``
     selavi_resize_bilinear_u8): same taps, clamps, and rounding."""
     t, h, w, c = frames.shape
     fy = (np.arange(new_h) + 0.5) * (h / new_h) - 0.5

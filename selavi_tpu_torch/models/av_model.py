@@ -1,7 +1,8 @@
 """AVModel: the two-tower audio-visual network with stacked heads
 (``selavi_tpu/models/av_model.py``).
 
-``forward(video [B,T,H,W,3], audio [B,F,T,C])`` returns per-head logits
+``forward(video [B,T,H,W,3], audio [B,F,T,C])`` (C = ``audio_channels``:
+1, or 2 for dual_data) returns per-head logits
 ``(logits_v, logits_a)``, each ``[H, B, K]``, or the pooled features
 ``(feat_v [B,512], feat_a [B,D_a])`` with ``return_features=True``. Train
 or eval behaviour follows ``model.train()`` / ``model.eval()``; train-mode
@@ -25,13 +26,14 @@ class AVModel(nn.Module):
                  aud_base_arch: str = "resnet9", use_mlp: bool = True,
                  headcount: int = 1, num_classes: int = 256,
                  midplanes_mode: str = "parity",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 audio_channels: int = 1):
         super().__init__()
         if vid_base_arch != "r2plus1d_18":
             raise ValueError(f"unsupported video arch: {vid_base_arch!r}")
         g = generator if generator is not None else torch.Generator()
         self.video_network = R2Plus1D18(midplanes_mode, g)
-        self.audio_network = AudioResNet(aud_base_arch, g)
+        self.audio_network = AudioResNet(aud_base_arch, g, audio_channels)
         self.heads_v = HeadStack(headcount, VIDEO_FEATURE_DIM, num_classes,
                                  use_mlp=use_mlp, generator=g)
         self.heads_a = HeadStack(headcount, AUDIO_ARCHS[aud_base_arch][2],
@@ -59,13 +61,16 @@ def load_model(vid_base_arch: str = "r2plus1d_18",
                aud_base_arch: str = "resnet9", use_mlp: bool = True,
                headcount: int = 1,
                num_classes: int = 256, midplanes_mode: str = "parity",
-               seed: int = 0, device=None, **_unused) -> AVModel:
+               seed: int = 0, device=None, audio_channels: int = 1,
+               **_unused) -> AVModel:
     """Build an AVModel with weights drawn from ``seed`` and move it to
-    ``device`` (the card unless ``device="cpu"`` is given)."""
+    ``device`` (the card unless ``device="cpu"`` is given). Its audio stem
+    takes ``audio_channels`` spectrograms (2 for dual_data)."""
     from selavi_tpu_torch.device import resolve_device
 
     device = resolve_device(device)
     g = torch.Generator().manual_seed(seed)
     model = AVModel(vid_base_arch, aud_base_arch, use_mlp, headcount,
-                    num_classes, midplanes_mode, generator=g)
+                    num_classes, midplanes_mode, generator=g,
+                    audio_channels=audio_channels)
     return model.to(device)

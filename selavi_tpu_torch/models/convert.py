@@ -160,6 +160,14 @@ def _walk(w: _Walker, model, state) -> None:
     _walk_heads(w, "heads_a", model.heads_a.use_mlp)
 
 
+def jax_audio_channels(params: dict) -> int:
+    """The input channels of the audio stem in flax ``params`` (1, or 2
+    for a dual_data run): the ``audio_channels`` of the AVModel that
+    ``load_jax_variables`` can fill from them."""
+    kernel = params["audio_network"]["ConvBN_0"]["Conv_0"]["kernel"]
+    return int(np.shape(kernel)[-2])  # [kh, kw, I, O]
+
+
 def load_jax_variables(model, params: dict, batch_stats: dict) -> None:
     """Fill ``model`` (an ``AVModel``) from flax ``params``/``batch_stats``
     trees of numpy arrays. Raises on a missing or extra key or a shape

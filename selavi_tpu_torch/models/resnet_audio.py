@@ -1,8 +1,11 @@
 """Audio encoder: 2D ResNet over log-filterbank spectrograms
 (``selavi_tpu/models/resnet_audio.py``), in NCHW.
 
-``forward`` takes the JAX package's layout ``[B, F, T, 1]`` and permutes to
-``[B, 1, F, T]`` inside. BasicBlock archs (resnet9/18/34) are supported;
+``forward`` takes the JAX package's layout ``[B, F, T, C]`` and permutes to
+``[B, C, F, T]`` inside. C, the stem's input channels, is 1, or 2 for
+dual_data (two channel-stacked spectrograms); JAX reads it off the example
+at init (``selavi_tpu/data/factory.py::example_shapes``), the port takes it
+as ``in_channels``. BasicBlock archs (resnet9/18/34) are supported;
 the Bottleneck arch (resnet50) raises ``NotImplementedError``.
 """
 
@@ -46,7 +49,8 @@ class BasicBlock2D(nn.Module):
 
 class AudioResNet(nn.Module):
     def __init__(self, arch: str = "resnet9",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 in_channels: int = 1):
         super().__init__()
         kind, stage_blocks, self.feature_dim = AUDIO_ARCHS[arch]
         if kind != "basic":
@@ -54,7 +58,7 @@ class AudioResNet(nn.Module):
                 f"audio arch {arch!r} (Bottleneck blocks) is not ported yet"
             )
         g = generator if generator is not None else torch.Generator()
-        self.stem = ConvBN(1, 64, (7, 7), (2, 2), (3, 3), True, g)
+        self.stem = ConvBN(in_channels, 64, (7, 7), (2, 2), (3, 3), True, g)
         blocks = []
         in_planes = 64
         for stage, (planes, nblocks) in enumerate(
@@ -67,7 +71,7 @@ class AudioResNet(nn.Module):
         self.blocks = nn.ModuleList(blocks)
 
     def forward(self, spec):
-        """spec [B, F, T, 1] -> [B, 512] fp32."""
+        """spec [B, F, T, C] -> [B, 512] fp32."""
         x = self.stem(spec.permute(0, 3, 1, 2))
         # MaxPool2d pads with -inf, like the JAX tower's max_pool
         x = F.max_pool2d(x, kernel_size=3, stride=2, padding=1)

@@ -111,13 +111,20 @@ def draw_augmentations(b: int, generator: torch.Generator) -> dict:
 def augment_video_batch(frames_u8, generator: Optional[torch.Generator] = None,
                         colorjitter: bool = False, grayscale: bool = False,
                         flip: bool = True, dtype=torch.float32,
-                        draws: Optional[dict] = None):
+                        draws: Optional[dict] = None, clips: int = 1):
     """Fused flip + normalize + color jitter + grayscale.
 
     ``frames_u8`` uint8 [B, T, H, W, 3]; returns normalized ``dtype`` video
-    of the same layout. ``draws`` (keys ``flip, bf, cf, sf, perm_idx,
-    jitter, gray``, each ``[B]``) replaces the generator's draws.
+    of the same layout. With ``clips`` > 1 (dual_data: that many clips
+    concatenated along time in each sample) every clip draws its own flip
+    and jitter, as the reference's per-clip ``clip_augmentation`` calls
+    do. ``draws`` (keys ``flip, bf, cf, sf, perm_idx, jitter, gray``, each
+    ``[B * clips]``, sample-major) replaces the generator's draws.
     """
+    b_in, t_in = frames_u8.shape[:2]
+    if clips > 1:
+        frames_u8 = frames_u8.reshape(b_in * clips, t_in // clips,
+                                      *frames_u8.shape[2:])
     b = frames_u8.shape[0]
     if draws is None:
         if generator is None:
@@ -136,4 +143,4 @@ def augment_video_batch(frames_u8, generator: Optional[torch.Generator] = None,
     if grayscale:
         gray = _gray(x)[..., None].expand_as(x)
         x = torch.where(draws["gray"][:, None, None, None, None], gray, x)
-    return x.to(dtype)
+    return x.to(dtype).reshape(b_in, t_in, *x.shape[2:])

@@ -5,9 +5,9 @@ At the first SK step, per head, a greedy random-swap search over column
 permutations minimizes ``sum_n sum_k |softmax_v[n,k] - softmax_a[n,perm(k)]|``
 (reference sk_utils.py:424-467). The cost decomposes per column pair, so
 ``C[i, j] = sum_n |v[n, i] - a[n, j]|`` is computed once on the device
-(streamed over N) and the sequential swap loop runs on the host over C.
-The search here is the Python loop; the JAX package's C++ search
-(``selavi_tpu/native``) is not ported.
+(streamed over N) and the sequential swap loop runs on the host over C:
+in the C++ data runtime (``selavi_tpu_torch.native``) when g++ built it,
+as in the JAX package, and in the Python loop otherwise.
 """
 
 from __future__ import annotations
@@ -75,10 +75,27 @@ def match_order(
     logits_v: torch.Tensor,
     logits_a: torch.Tensor,
     rng: np.random.Generator | None = None,
+    use_native: bool = True,
 ) -> np.ndarray:
     """Softmax both modalities, build C on the device, search on the host.
-    Returns the permutation to apply to the audio head's output clusters."""
+    Returns the permutation to apply to the audio head's output clusters.
+
+    With ``use_native`` the search seeds the C++ loop with one draw from
+    ``rng`` (``rng.integers(1, 2**62)``), as the JAX package does, so both
+    leave ``rng`` in the same state; the draw is made even when the
+    library is unavailable, and the Python loop then continues on ``rng``.
+    Without it the Python loop runs on ``rng`` and nothing is drawn first.
+    """
     pv = torch.softmax(logits_v.float(), dim=1)
     pa = torch.softmax(logits_a.float(), dim=1)
     cost = column_cost_matrix(pv, pa).cpu().numpy()
+    if rng is None:
+        rng = np.random.default_rng(0)
+    if use_native:
+        from selavi_tpu_torch import native
+
+        perm = native.greedy_swap_match_native(
+            cost, seed=int(rng.integers(1, 2 ** 62)))
+        if perm is not None:
+            return perm
     return greedy_swap_match(cost, rng=rng)

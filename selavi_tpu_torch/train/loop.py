@@ -9,14 +9,20 @@ logged every 50 iterations, and an epoch returns the JAX Trainer's
 SIGUSR1 or host-memory pressure writes one mid-epoch and exits 0.
 
 Batches come from any dataset of ``data/factory.py``: spectrograms or raw
-PCM (``--device_spectrogram``, or a packed shard), RGB or YUV 4:2:0 video.
-Every batch goes through ``data/loader.py::decode_wire_batch`` on the
-device, and the steps turn PCM into spectrograms there
-(``train/step.py::prepare_audio`` with the args' ``audio_cfg``).
-Multi-device meshes, process workers, data echo and the other flags in
-``UNPORTED_FLAGS`` are not ported yet: a flag that asks for one of them
-makes the Trainer raise rather than train something other than what the
-JAX Trainer would.
+PCM (``--device_spectrogram``, or a packed shard), RGB or YUV 4:2:0 video,
+one clip a sample or two (``--dual_data``: the clips concatenated along
+time, each augmented with its own draws, and a 2-channel audio stem).
+The loader renders them on threads or spawned processes
+(``--worker_mode``) and copies each batch to the card in one transfer
+(``--coalesce_transfers``); every batch goes through
+``data/loader.py::decode_wire_batch`` on the device, and the steps turn
+PCM into spectrograms there (``train/step.py::prepare_audio`` with the
+args' ``audio_cfg``). With ``--data_echo N`` each loaded batch trains N
+steps, each with fresh augmentations, and the epoch, the SK schedule and
+its fast-forward count N times the loader's batches. Multi-device meshes
+and the SK batch cache (``UNPORTED_FLAGS``) are not ported yet: a flag that
+asks for one of them makes the Trainer raise rather than train something
+other than what the JAX Trainer would.
 """
 
 from __future__ import annotations
@@ -24,11 +30,12 @@ from __future__ import annotations
 import logging
 import os
 import time
+from typing import Iterator
 
 import numpy as np
 import torch
 
-from selavi_tpu_torch.data.factory import audio_cfg_from_args
+from selavi_tpu_torch.data.factory import audio_cfg_from_args, example_shapes
 from selavi_tpu_torch.data.loader import DataLoader, decode_wire_batches
 from selavi_tpu_torch.device import resolve_device
 from selavi_tpu_torch.models.av_model import load_model
@@ -66,9 +73,6 @@ JAX_CKPT_NAME = "checkpoint.msgpack"
 # Trainer does not implement: flag -> (default, the ROADMAP Queue 1 item
 # that ports it). Any other value raises NotImplementedError.
 UNPORTED_FLAGS = {
-    "worker_mode": ("thread", "6 (loader: process workers, data echo)"),
-    "data_echo": (1, "6 (loader: process workers, data echo)"),
-    "dual_data": (False, "7 (dual_data)"),
     "sk_cache_batches": (False, "9 (SK phase: cached aggregation batches)"),
     "model_axis": (1, MULTI_GPU_ITEM),
 }
@@ -108,20 +112,23 @@ class Trainer:
                             else "parity"),
             seed=args.seed,
             device=self.device,
+            # the stem takes the example's audio channels: 2 for dual_data
+            audio_channels=example_shapes(args, dataset)[1][-1],
         )
-        workers = getattr(args, "workers", 0)
-        self.loader = DataLoader(
-            dataset, batch_size=args.batch_size, shuffle=True, drop_last=True,
-            num_workers=workers, seed=args.seed, device=self.device,
-            prefetch=getattr(args, "prefetch", 2),
-        )
-        self.batches_per_epoch = len(self.loader)
+        self.loader = self._loader(
+            batch_size=args.batch_size, shuffle=True, drop_last=True,
+            seed=args.seed, prefetch=getattr(args, "prefetch", 2))
+        # data echoing (Choi et al., arXiv:1907.05550): each loaded batch
+        # trains data_echo steps, each with fresh augmentations
+        self.data_echo = max(1, int(getattr(args, "data_echo", 1) or 1))
+        self.batches_per_epoch = len(self.loader) * self.data_echo
+        self.video_clips = 2 if getattr(args, "dual_data", False) else 1
         self.optimizer = make_optimizer(self.model, args.base_lr, args.wd)
         self.audio_cfg = audio_cfg_from_args(args)
         self.train_step = steps.make_train_step(
             self.model, self.optimizer, colorjitter=args.colorjitter,
             grayscale=args.use_grayscale, compute_dtype=self.compute_dtype,
-            audio_cfg=self.audio_cfg,
+            audio_cfg=self.audio_cfg, video_clips=self.video_clips,
         )
         n = len(dataset)
         self.sl_state = SelfLabelState.init(n, args.headcount)
@@ -154,6 +161,25 @@ class Trainer:
         self.history: list[dict] = []
         self._eval_iter_count = 0
 
+    def _loader(self, **kwargs) -> DataLoader:
+        """A loader of the dataset on the Trainer's device, with the args'
+        workers, worker mode and transfer mode."""
+        return DataLoader(
+            self.dataset, num_workers=getattr(self.args, "workers", 0),
+            device=self.device,
+            worker_mode=getattr(self.args, "worker_mode", "thread"),
+            coalesce=getattr(self.args, "coalesce_transfers", True),
+            **kwargs)
+
+    def _device_batches(self, echo: bool = True) -> Iterator[dict]:
+        """The train loader's batches on the device, each ``data_echo``
+        times in a row; ``echo=False`` yields each once (BN warmup wants
+        unique batches, not replays)."""
+        batches = decode_wire_batches(self.loader)
+        if self.data_echo == 1 or not echo:
+            return batches
+        return (b for b in batches for _ in range(self.data_echo))
+
     def resume(self) -> int:
         """Restore from ``{dump_path}/checkpoint.pth`` if it exists and
         fast-forward the SK schedule; returns the epoch to start at."""
@@ -176,26 +202,27 @@ class Trainer:
         logger.info("Warming up batchnorm (%d batches)", batches)
         self.loader.set_epoch(999)
         gen = torch.Generator(device=self.device).manual_seed(999)
-        for i, batch in enumerate(decode_wire_batches(self.loader)):
+        for i, batch in enumerate(self._device_batches(echo=False)):
             if i >= batches:
                 break
             steps.bn_warmup_step(
                 self.model, batch["video"],
                 batch.get("audio", batch.get("audio_pcm")), gen,
-                self.compute_dtype, self.audio_cfg)
+                self.compute_dtype, self.audio_cfg, self.video_clips)
 
-    def _make_eval_iter(self):
-        """A fresh sequential full-dataset iterator for SK aggregation."""
+    def _make_eval_iter(self) -> Iterator[dict]:
+        """A fresh sequential full-dataset iterator for SK aggregation; its
+        worker processes, if any, stop when it ends."""
         self._eval_iter_count += 1
-        return decode_wire_batches(DataLoader(
-            self.dataset,
+        loader = self._loader(
             batch_size=min(getattr(self.args, "sk_agg_batch", 128),
                            max(len(self.dataset), 1)),
             shuffle=False, drop_last=False,
-            num_workers=getattr(self.args, "workers", 0),
-            seed=self.args.seed + 7919 + self._eval_iter_count,
-            device=self.device,
-        ))
+            seed=self.args.seed + 7919 + self._eval_iter_count)
+        try:
+            yield from decode_wire_batches(loader)
+        finally:
+            loader.close()
 
     def maybe_cluster(self, iteration: int) -> bool:
         """Run SK if the schedule says so."""
@@ -209,6 +236,7 @@ class Trainer:
                 augment=self.sk_augment, colorjitter=self.args.colorjitter,
                 grayscale=self.args.use_grayscale,
                 compute_dtype=self.compute_dtype, audio_cfg=self.audio_cfg,
+                video_clips=self.video_clips,
             )
 
         def head_logits_fn(feats, modality):
@@ -254,7 +282,7 @@ class Trainer:
         batches_thusfar = epoch * self.batches_per_epoch
         labels_dev = torch.from_numpy(self.sl_state.selflabels).to(self.device)
         metrics = None
-        for it, batch in enumerate(decode_wire_batches(self.loader)):
+        for it, batch in enumerate(self._device_batches()):
             data_time.update(time.time() - end)
             if self.maybe_cluster(batches_thusfar + it):
                 labels_dev = torch.from_numpy(self.sl_state.selflabels).to(
@@ -317,15 +345,19 @@ class Trainer:
                 f"whose import into the port is ROADMAP Queue 1 item 10 "
                 f"(evaluation tools)")
         start_epoch = self.resume()
-        if start_epoch == 0:
-            self.warmup_batchnorm()
-        for epoch in range(start_epoch, self.args.epochs):
-            logger.info("============ Starting epoch %i ============", epoch)
-            with trace_window(self.args.dump_path,
-                              enabled=(self.args.trace_profile
-                                       and epoch == start_epoch)):
-                loss = self.train_epoch(epoch)
-            self.checkpoint(epoch)
-            self.history.append({"epoch": epoch, "loss": loss})
+        try:
+            if start_epoch == 0:
+                self.warmup_batchnorm()
+            for epoch in range(start_epoch, self.args.epochs):
+                logger.info("============ Starting epoch %i ============",
+                            epoch)
+                with trace_window(self.args.dump_path,
+                                  enabled=(self.args.trace_profile
+                                           and epoch == start_epoch)):
+                    loss = self.train_epoch(epoch)
+                self.checkpoint(epoch)
+                self.history.append({"epoch": epoch, "loss": loss})
+        finally:
+            self.loader.close()  # the worker processes, if any
         wait_for_pending_checkpoint()  # flush the final async write
         return self.history

@@ -9,7 +9,9 @@ card) and in fp32 otherwise.
 Audio arrives as spectrograms ``[B,F,T,1]`` or, with
 ``--device_spectrogram``, as raw PCM ``[B,S]`` that ``prepare_audio``
 turns into spectrograms on the device (``ops/logmel.py``), in fp32 and
-outside autocast.
+outside autocast. With ``--dual_data`` (``video_clips=2``) a sample holds
+two clips concatenated along time, each augmented with its own draws, and
+its audio two channels.
 """
 
 from __future__ import annotations
@@ -64,12 +66,13 @@ def multihead_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 def make_train_step(model, optimizer, colorjitter: bool = False,
                     grayscale: bool = False,
                     compute_dtype: torch.dtype = torch.float32,
-                    audio_cfg: Optional[dict] = None):
+                    audio_cfg: Optional[dict] = None, video_clips: int = 1):
     """Returns ``step(batch, labels, generator) -> metrics`` (0-dim tensors,
     not synced). ``batch['video']`` uint8 [B,T,H,W,3] and
     ``batch['audio']`` fp32 [B,F,T,1] (or ``batch['audio_pcm']`` [B,S],
     turned into spectrograms by ``prepare_audio``) on the device;
-    ``labels`` [B, H]."""
+    ``labels`` [B, H]. ``video_clips`` > 1 (dual_data) gives each
+    time-concatenated clip its own flip and jitter."""
     param = next(model.parameters())
     device, dtype = param.device, param.dtype
 
@@ -78,7 +81,7 @@ def make_train_step(model, optimizer, colorjitter: bool = False,
         video = augment_video_batch(batch["video"], generator,
                                     colorjitter=colorjitter,
                                     grayscale=grayscale, flip=True,
-                                    dtype=dtype)
+                                    dtype=dtype, clips=video_clips)
         audio = prepare_audio(batch.get("audio", batch.get("audio_pcm")),
                               dtype, audio_cfg)
         with autocast(device, compute_dtype):
@@ -98,35 +101,52 @@ def make_train_step(model, optimizer, colorjitter: bool = False,
 @torch.no_grad()
 def bn_warmup_step(model, video_u8, audio, generator,
                    compute_dtype: torch.dtype = torch.float32,
-                   audio_cfg: Optional[dict] = None):
+                   audio_cfg: Optional[dict] = None, video_clips: int = 1):
     """Forward-only train-mode pass (heads included) that updates the BN
     running statistics."""
     device = video_u8.device
     model.train()
-    video = augment_video_batch(video_u8, generator, flip=True)
+    video = augment_video_batch(video_u8, generator, flip=True,
+                                clips=video_clips)
     audio = prepare_audio(audio, next(model.parameters()).dtype, audio_cfg)
     with autocast(device, compute_dtype):
         model(video, audio, generator=generator)
+
+
+def match_audio_channels(spec: torch.Tensor,
+                         audio_channels: Optional[int]) -> torch.Tensor:
+    """Tile a one-channel spectrogram ``[..., 1]`` to the audio stem's
+    channel count (``selavi_tpu/train/step.py::_match_audio_channels``):
+    a dual_data checkpoint has a 2-channel stem, and evaluation datasets
+    yield single clips."""
+    if audio_channels and spec.shape[-1] == 1 and audio_channels != 1:
+        spec = spec.expand(*spec.shape[:-1], int(audio_channels))
+    return spec
 
 
 @torch.no_grad()
 def encode(model, video_u8, audio, generator=None, augment: bool = True,
            colorjitter: bool = False, grayscale: bool = False,
            compute_dtype: torch.dtype = torch.float32,
-           audio_cfg: Optional[dict] = None):
+           audio_cfg: Optional[dict] = None,
+           audio_channels: Optional[int] = None, video_clips: int = 1):
     """Eval-mode pooled features ``(feat_v, feat_a)`` for SK aggregation.
-    ``augment`` runs the train-time flip (and jitter/grayscale when set);
-    otherwise the video is only normalized. PCM ``audio`` goes through
-    ``prepare_audio``."""
+    ``augment`` runs the train-time flip (and jitter/grayscale when set;
+    per clip with ``video_clips`` > 1); otherwise the video is only
+    normalized. PCM ``audio`` goes through ``prepare_audio``; a one-channel
+    spectrogram is tiled to ``audio_channels``."""
     device = video_u8.device
     model.eval()
     if augment:
         video = augment_video_batch(video_u8, generator,
                                     colorjitter=colorjitter,
-                                    grayscale=grayscale, flip=True)
+                                    grayscale=grayscale, flip=True,
+                                    clips=video_clips)
     else:
         video = normalize_video(video_u8)
-    audio = prepare_audio(audio, next(model.parameters()).dtype, audio_cfg)
+    audio = match_audio_channels(
+        prepare_audio(audio, next(model.parameters()).dtype, audio_cfg),
+        audio_channels)
     with autocast(device, compute_dtype):
         return model(video, audio, return_features=True)
 

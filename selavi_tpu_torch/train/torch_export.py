@@ -270,6 +270,7 @@ def model_for_state_dict(state: Dict[str, torch.Tensor]):
         raise ValueError(f"unrecognized audio tower: {len(blocks)} blocks")
     mid = state["video_network.layer1_block0.conv1.spatial.weight"].shape[0]
     model = load_model(
+        audio_channels=state["audio_network.stem.conv.weight"].shape[1],
         aud_base_arch=_AUDIO_BY_BLOCKS[len(blocks)][0],
         use_mlp="heads_v.hidden_weight" in state,
         headcount=proj.shape[0],
@@ -283,8 +284,9 @@ def model_for_state_dict(state: Dict[str, torch.Tensor]):
 
 def export_our_checkpoint(ckpt_path: str, out_path: str):
     """Convert one of the port's ``checkpoint.pth`` files to the reference
-    .pth layout. The architecture (head count, K, MLP heads, audio arch,
-    midplanes) is read off the saved state_dict's shapes."""
+    .pth layout. The architecture (head count, K, MLP heads, audio arch
+    and stem channels, midplanes) is read off the saved state_dict's
+    shapes."""
     payload = torch.load(ckpt_path, map_location="cpu", weights_only=True)
     model = model_for_state_dict(payload["model"])
     params, batch_stats = export_jax_variables(model)

@@ -3,14 +3,11 @@ same inputs and rng: transforms, the audio slicing and jitters, the
 decoder, ``AVideoDataset``, the synthetic set's PCM mode, packed shards
 (byte for byte, both ways), the factory and the loader's wire formats.
 
-The JAX package resizes frames and computes host spectrograms in its C++
-data runtime when g++ built it, and in numpy twins of those kernels
-otherwise. The port has only the numpy twins, so it is held against JAX
-twice: bit for bit with the JAX runtime switched off (``jax_numpy``), and
-against the runtime as it runs (``jax_native``), where the resize may
-differ by 1 in a uint8 value (RESIZE_LSB; the runtime rounds from another
-precision, measured on under 0.03% of the values) and the spectrogram by
-SPEC_ATOL. The real-media fixtures are written by
+Both packages resize frames and compute host spectrograms in their C++
+data runtimes when g++ built them, and in numpy twins of those kernels
+otherwise. The port is held against JAX bit for bit on both routes
+(``jax_runtime``): with both runtimes switched off (``jax_numpy``), and
+with both built (``jax_native``). The real-media fixtures are written by
 ``scripts/make_real_media.py`` (cv2 mp4s and WAV sidecars); the tests that
 decode them skip where cv2 is absent, as ``tests/test_real_media.py``
 does.
@@ -29,6 +26,7 @@ import pytest
 import torch
 
 from selavi_tpu import native as jax_native
+from selavi_tpu_torch import native as port_native
 from selavi_tpu.data import audio as jaudio
 from selavi_tpu.data import dataset as jdataset
 from selavi_tpu.data import decoder as jdec
@@ -51,35 +49,33 @@ from selavi_tpu_torch.data.loader import DataLoader, decode_wire_batch
 torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-RESIZE_LSB = 1
-SPEC_ATOL = 1e-4
 SR = 16000
+
+
+def _host_numpy(monkeypatch):
+    """Switch both packages' C++ data runtimes off: every host kernel runs
+    its numpy twin."""
+    monkeypatch.setattr(jax_native, "_load", lambda: None)
+    monkeypatch.setattr(port_native, "_load", lambda: None)
 
 
 @pytest.fixture(params=["jax_numpy", "jax_native"])
 def jax_runtime(request, monkeypatch):
-    """Which JAX host path the port is held against; returns the
-    tolerances (uint8 values, spectrogram) that path allows."""
+    """Which host route both packages run: the numpy twins, or the C++
+    data runtimes as built."""
     if request.param == "jax_numpy":
-        monkeypatch.setattr(jax_native, "available", lambda: False)
-        return 0, 0.0
-    if not jax_native.available():
-        pytest.skip("the JAX package's C++ data runtime is not built here")
-    return RESIZE_LSB, SPEC_ATOL
+        _host_numpy(monkeypatch)
+    elif not (jax_native.available() and port_native.available()):
+        pytest.skip("g++ did not build the C++ data runtimes here")
+    return request.param
 
 
-def _assert_example_equal(ours, ref, lsb=0, spec_atol=0.0):
+def _assert_example_equal(ours, ref):
     assert sorted(ours) == sorted(ref)
     for key in ref:
         a, b = np.asarray(ours[key]), np.asarray(ref[key])
         assert a.dtype == b.dtype and a.shape == b.shape, key
-        if key == "video" and lsb:
-            diff = np.abs(a.astype(np.int16) - b.astype(np.int16))
-            assert diff.max() <= lsb, key
-        elif key == "audio" and spec_atol:
-            np.testing.assert_allclose(a, b, rtol=0, atol=spec_atol)
-        else:
-            np.testing.assert_array_equal(a, b, err_msg=key)
+        np.testing.assert_array_equal(a, b, err_msg=key)
 
 
 def _frames(seed, shape=(3, 48, 64, 3)):
@@ -93,21 +89,19 @@ def _frames(seed, shape=(3, 48, 64, 3)):
                                        ((2, 160, 160, 3), (112, 112)),
                                        ((1, 37, 53, 3), (200, 90))])
 def test_resize_frames_matches_jax(shape, new, jax_runtime):
-    lsb, _ = jax_runtime
     frames = _frames(0, shape)
     ours = ptransforms.resize_frames(frames, *new)
     ref = jtransforms.resize_frames(frames, *new)
     assert ours.dtype == ref.dtype == np.uint8 and ours.shape == ref.shape
-    diff = np.abs(ours.astype(np.int16) - ref.astype(np.int16))
-    assert diff.max() <= lsb
-    np.testing.assert_array_equal(
-        ours, jtransforms._resize_frames(frames, *new))
+    np.testing.assert_array_equal(ours, ref)
+    # the numpy twins agree whichever route ran
+    np.testing.assert_array_equal(ptransforms._resize_frames(frames, *new),
+                                  jtransforms._resize_frames(frames, *new))
 
 
 @pytest.mark.parametrize("shape", [(3, 48, 64, 3), (3, 64, 48, 3),
                                    (2, 40, 40, 3)])
 def test_crops_and_scale_jitter_match_jax(shape, jax_runtime):
-    lsb, _ = jax_runtime
     frames = _frames(1, shape)
 
     def both(fn_name, *args, seed=None):
@@ -127,13 +121,11 @@ def test_crops_and_scale_jitter_match_jax(shape, jax_runtime):
             ("center_crop", (32,), None)):
         ours, ref = both(name, *args, seed=seed)
         assert ours.shape == ref.shape, name
-        diff = np.abs(ours.astype(np.int16) - ref.astype(np.int16))
-        assert diff.max() <= lsb, name
+        np.testing.assert_array_equal(ours, ref, err_msg=name)
 
 
 @pytest.mark.parametrize("spatial_idx", [-1, 0, 1, 2, 3, 4, 5])
 def test_spatial_sampling_matches_jax(spatial_idx, jax_runtime):
-    lsb, _ = jax_runtime
     frames = _frames(2)
     kw = dict(spatial_idx=spatial_idx, min_scale=36, max_scale=45,
               crop_size=32)
@@ -141,7 +133,7 @@ def test_spatial_sampling_matches_jax(spatial_idx, jax_runtime):
     ours = ptransforms.spatial_sampling(frames, rng=rngs[0], **kw)
     ref = jtransforms.spatial_sampling(frames, rng=rngs[1], **kw)
     assert ours.shape == ref.shape == (3, 32, 32, 3)
-    assert np.abs(ours.astype(np.int16) - ref.astype(np.int16)).max() <= lsb
+    np.testing.assert_array_equal(ours, ref)
     assert rngs[0].integers(1 << 30) == rngs[1].integers(1 << 30)
 
 
@@ -168,7 +160,6 @@ def test_lighting_jitter_and_scale_range_match_jax():
 @pytest.mark.parametrize("spec_type", [1, 2])
 def test_get_spec_jitters_match_jax(volume, temporal, spec_type,
                                     jax_runtime):
-    _, atol = jax_runtime
     wav = (np.random.default_rng(0).standard_normal(SR * 3) * 3000
            ).astype(np.int16)
     rngs = [np.random.default_rng(11), np.random.default_rng(11)]
@@ -178,9 +169,24 @@ def test_get_spec_jitters_match_jax(volume, temporal, spec_type,
     ours = paudio.get_spec(wav, 0.3, rng=rngs[0], **kw)
     ref = jaudio.get_spec(wav, 0.3, rng=rngs[1], **kw)
     assert ours.dtype == ref.dtype == np.float32 and ours.shape == ref.shape
-    np.testing.assert_allclose(ours, ref, rtol=0, atol=atol)
+    np.testing.assert_array_equal(ours, ref)
     # the same draws, in the same order
     assert rngs[0].integers(1 << 30) == rngs[1].integers(1 << 30)
+
+
+@pytest.mark.parametrize("nfilt", [40, 257])
+@pytest.mark.parametrize("sample_rate", [16000, 48000])
+def test_logfbank_fast_matches_jax(nfilt, sample_rate, jax_runtime):
+    """``get_spec``'s filterbank: the C++ runtime's float32 FFT (one
+    sample, one thread) in both packages, or numpy float64 in both."""
+    wav = (np.random.default_rng(nfilt).standard_normal(sample_rate) * 3000
+           ).astype(np.float64)
+    ours = paudio._logfbank_fast(wav, sample_rate, nfilt)
+    ref = jaudio._logfbank_fast(wav, sample_rate, nfilt)
+    assert ours.shape == ref.shape == (99, nfilt)
+    np.testing.assert_array_equal(ours, ref)
+    assert ours.dtype == (np.float32 if jax_runtime == "jax_native"
+                          else np.float64)
 
 
 @pytest.mark.parametrize("fr_sec", [-0.2, 0.0, 0.75, 2.9])
@@ -365,7 +371,6 @@ def test_path_list_cache_is_jax_bytes(media, tmp_path, mode):
 @pytest.mark.parametrize("mode", ["train", "test"])
 def test_get_example_matches_jax(media, tmp_path, jax_runtime, return_pcm,
                                  dual, mode):
-    lsb, atol = jax_runtime
     if mode == "test":
         shutil.copytree(media / "train", media / mode, dirs_exist_ok=True)
     ours, ref = _both_datasets(
@@ -376,7 +381,7 @@ def test_get_example_matches_jax(media, tmp_path, jax_runtime, return_pcm,
                 np.random.default_rng((5, index))]
         a = ours.get_example(index, rngs[0])
         b = ref.get_example(index, rngs[1])
-        _assert_example_equal(a, b, lsb, atol)
+        _assert_example_equal(a, b)
         clips = 2 if dual and mode == "train" else 1
         assert a["video"].shape == (8 * clips, 32, 32, 3)
         if return_pcm:
@@ -389,7 +394,7 @@ def test_get_example_matches_jax(media, tmp_path, jax_runtime, return_pcm,
 
 
 def test_decode_failures_resample_then_raise(media, tmp_path, monkeypatch):
-    monkeypatch.setattr(jax_native, "available", lambda: False)
+    _host_numpy(monkeypatch)
     root = tmp_path / "bad"
     shutil.copytree(media / "train", root / "train")
     bad = sorted((root / "train").iterdir())[0] / "aaa_corrupt.mp4"
@@ -640,8 +645,7 @@ def test_factory_builds_every_kind(tmp_path, media):
                 assert len(ours) == len(ref)
                 a = ours.get_example(1, np.random.default_rng(3))
                 b = ref.get_example(1, np.random.default_rng(3))
-                # JAX's host path as it runs: see the module docstring
-                _assert_example_equal(a, b, RESIZE_LSB, SPEC_ATOL)
+                _assert_example_equal(a, b)
         assert pfactory.audio_cfg_from_args(args) == (
             jfactory.audio_cfg_from_args(args))
 

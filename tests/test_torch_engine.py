@@ -5,17 +5,26 @@ into both; the stub encoder passes features through, so the comparison is
 of the engine itself: head-order shuffle, marginals (the Gaussian draws and
 the sorting trick consume the same host RNG stream), the per-head SK solve
 and the label write. Labels must be identical.
+
+With matching at the first SK step the two engines must also pick the
+same audio-head permutations and leave the host rng in the same state,
+under both host runtimes: the C++ search of each package's data runtime
+(``native``), and the Python loop when that library is unavailable
+(``numpy``).
 """
 
 import jax.numpy as jnp
+from jax.nn import softmax as jax_softmax
 import numpy as np
 import pytest
 import torch
 
+from selavi_tpu import native as jax_native
 from selavi_tpu.selflabel import matching as jmatch
 from selavi_tpu.selflabel.engine import SKConfig as JaxSKConfig
 from selavi_tpu.selflabel.engine import cluster as jax_cluster
 from selavi_tpu.selflabel.marginals import MarginalState as JaxMarginalState
+from selavi_tpu_torch import native
 from selavi_tpu_torch.models.heads import HeadStack
 from selavi_tpu_torch.selflabel import matching
 from selavi_tpu_torch.selflabel.engine import (
@@ -88,6 +97,118 @@ def test_cluster_matches_jax(backend, distribution, ind_groups):
                                rtol=1e-9)
     np.testing.assert_allclose(metrics["nmi_vs_old"], jmetrics["nmi_vs_old"],
                                rtol=1e-9, atol=1e-12)
+
+
+@pytest.fixture(params=["native", "numpy"])
+def host_runtime(request, monkeypatch):
+    """Both packages' host data runtimes: built (``native``), or both
+    unavailable so that matching runs the Python loop (``numpy``)."""
+    if request.param == "numpy":
+        monkeypatch.setattr(native, "_load", lambda: None)
+        monkeypatch.setattr(jax_native, "_load", lambda: None)
+    elif not (native.available() and jax_native.available()):
+        pytest.skip("g++ did not build the host data runtimes here")
+    return request.param
+
+
+@pytest.mark.parametrize("ind_groups", [1, 2])
+def test_cluster_with_matching_matches_jax(host_runtime, ind_groups):
+    """match=True at the first SK step: the audio heads are column
+    permutations of the video heads (plus noise), so the search has one
+    clear optimum that fp32 sums in either order reach; both engines must
+    permute the same columns, write the same labels and leave ``np_rng``
+    in the same state (the port's Python loop before the C++ search drew
+    no seed, and left it elsewhere)."""
+    n, k, h, d = 96, 24, 3, 32
+    true, fv, fa, wv, _ = _problem(n, k, h, d)
+    rng = np.random.default_rng(11)
+    wa = np.stack([wv[i][:, rng.permutation(k)] for i in range(h)])
+    wa = (wa + rng.standard_normal(wa.shape) * 0.02).astype(np.float32)
+    ba = (rng.standard_normal((h, k)) * 0.01).astype(np.float32)
+
+    def jax_logits(p, f, m):
+        proj = p["heads_v" if m == "v" else "heads_a"]["heads"]["proj"]
+        return (jnp.einsum("nd,hdk->hnk", f, proj["kernel"])
+                + proj["bias"][:, None, :])
+
+    params = {name: {"heads": {"proj": {"kernel": jnp.asarray(w),
+                                        "bias": jnp.asarray(b)}}}
+              for name, w, b in (("heads_v", wv, np.zeros((h, k),
+                                                           np.float32)),
+                                 ("heads_a", wa, ba))}
+    jcfg = JaxSKConfig(headcount=h, num_clusters=k, ind_groups=ind_groups,
+                       match=True, sk_backend="xla", feat_dim=d)
+    jrng = np.random.default_rng(7)
+    jlabels, _, jmetrics, info = jax_cluster(
+        encode_fn=lambda v, a: (v, a), head_logits_fn=jax_logits,
+        make_batch_iter=lambda: _batches(fv, fa, jnp.asarray), params=params,
+        n=n, cfg=jcfg, selflabels=np.zeros((n, h), np.int32),
+        marginal_state=JaxMarginalState(), iter_num=0, np_rng=jrng,
+        true_labels=true,
+    )
+
+    heads_a = HeadStack(h, d, k, use_mlp=False).eval()
+    with torch.no_grad():
+        heads_a.proj_weight.copy_(torch.from_numpy(wa))
+        heads_a.proj_bias.copy_(torch.from_numpy(ba))
+    wv_t = torch.from_numpy(wv)
+
+    def head_logits_fn(f, modality):
+        if modality == "v":
+            return torch.einsum("nd,hdk->hnk", f, wv_t)
+        with torch.no_grad():
+            return heads_a(f)
+
+    cfg = SKConfig(headcount=h, num_clusters=k, ind_groups=ind_groups,
+                   match=True, sk_backend="plain", feat_dim=d)
+    prng = np.random.default_rng(7)
+    labels, _, metrics = cluster(
+        encode_fn=lambda v, a: (v, a), head_logits_fn=head_logits_fn,
+        make_batch_iter=lambda: _batches(fv, fa, torch.from_numpy), n=n,
+        cfg=cfg, selflabels=np.zeros((n, h), np.int32),
+        marginal_state=MarginalState(), iter_num=0, np_rng=prng,
+        device="cpu", audio_heads=heads_a, true_labels=true,
+    )
+
+    jproj = info["params"]["heads_a"]["heads"]["proj"]
+    np.testing.assert_array_equal(heads_a.proj_weight.detach().numpy(),
+                                  np.asarray(jproj["kernel"]))
+    np.testing.assert_array_equal(heads_a.proj_bias.detach().numpy(),
+                                  np.asarray(jproj["bias"]))
+    assert not np.array_equal(heads_a.proj_weight.detach().numpy(), wa)
+    np.testing.assert_array_equal(labels, jlabels)
+    assert prng.bit_generator.state == jrng.bit_generator.state
+    np.testing.assert_allclose(metrics["sk_cost"], jmetrics["sk_cost"],
+                               rtol=1e-5)
+
+
+def test_match_order_matches_jax(host_runtime, monkeypatch):
+    """``match_order`` at the main path's size (N=480, K=309) on unrelated
+    logits, where the swap search ends in one of many local optima and its
+    path decides which. Both packages search the JAX package's cost
+    matrix (fp32 sums in another order could tie-break one swap
+    differently), so this holds the search and its seeding: the same
+    permutation, and ``rng`` left in the same state; and the same again
+    with ``use_native=False`` (the Python loop, no seed drawn) at K=40."""
+    rng = np.random.default_rng(5)
+    lv = rng.standard_normal((480, 309)).astype(np.float32) * 2
+    la = rng.standard_normal((480, 309)).astype(np.float32) * 2
+    costs = {k: np.asarray(jmatch.column_cost_matrix(
+        jax_softmax(jnp.asarray(lv[:, :k])),
+        jax_softmax(jnp.asarray(la[:, :k])))) for k in (309, 40)}
+    monkeypatch.setattr(matching, "column_cost_matrix",
+                        lambda v, a: torch.tensor(costs[v.shape[1]]))
+    for k, kw in ((309, {}), (40, {"use_native": False})):
+        prng, jrng = np.random.default_rng(3), np.random.default_rng(3)
+        perm = matching.match_order(torch.from_numpy(lv[:, :k]),
+                                    torch.from_numpy(la[:, :k]), rng=prng,
+                                    **kw)
+        jperm = jmatch.match_order(jnp.asarray(lv[:, :k]),
+                                   jnp.asarray(la[:, :k]), rng=jrng, **kw)
+        np.testing.assert_array_equal(perm, jperm)
+        assert prng.bit_generator.state == jrng.bit_generator.state
+        assert sorted(perm.tolist()) == list(range(k))
+        assert costs[k][np.arange(k), perm].sum() < np.trace(costs[k])
 
 
 def test_column_cost_and_greedy_swap_match_jax():

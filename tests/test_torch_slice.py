@@ -74,10 +74,7 @@ def test_trainer_fit_runs_the_slice_on_cpu(monkeypatch, tmp_path):
 
 
 # A non-default value of every flag in UNPORTED_FLAGS.
-UNPORTED_VALUES = {
-    "worker_mode": "process", "data_echo": "2",
-    "dual_data": "true", "sk_cache_batches": "true", "model_axis": "2",
-}
+UNPORTED_VALUES = {"sk_cache_batches": "true", "model_axis": "2"}
 
 
 @pytest.mark.parametrize("flag", sorted(UNPORTED_VALUES))
@@ -153,7 +150,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "data.dataset", "data.packed", "ops.logmel",
                  "parallel.dist", "train.checkpoint", "train.state",
                  "train.torch_export", "utils.experiment", "utils.logger",
-                 "utils.meters", "utils.profiling"):
+                 "utils.meters", "utils.profiling", "native"):
         assert f"selavi_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"
