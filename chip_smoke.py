@@ -25,6 +25,12 @@ with the launch counts set to 0 just before and read just after each:
   epoch's device time by operation, and the SK step's modality matcher
   (its route, which must be the native one, and seconds for the 10
   heads, beside the Python loop's on the same cost matrices) are printed;
+- the eval path on run 2's checkpoint: ``selavi_tpu_torch.cli.
+  get_clusters`` at the recipe's widths (480 samples, fp32, batch 64, 8
+  loader threads) writes the cluster dump, whose schema and finite values
+  are checked and whose first 16 samples' logits are held against the
+  port's CPU result; ``selavi_tpu_torch.cli.clustering_metrics`` reports
+  on it. The dump's seconds, clips/s and peak memory are printed;
 - the loader modes: the same CLI recipe for one epoch with spawned loader
   workers, data echo 2 and coalesced transfers (``--worker_mode process
   --data_echo 2 --coalesce_transfers true``): twice the steps of the
@@ -45,6 +51,12 @@ with the launch counts set to 0 just before and read just after each:
   resumed with ``--trace_profile true`` traces one epoch with the host
   ops' input shapes, which name the layers behind the fp32 FFMA
   convolution kernels;
+- the SK cache: the recipe with ``--ind_groups 2``, one SK step without
+  and one with ``--sk_cache_batches`` (two aggregation loaders against
+  one), each with its seconds, split and peak memory;
+- resnet50: a Trainer at the recipe with ``--aud_base_arch resnet50``
+  takes 3 steps, times the step on a resident batch and runs one SK step
+  on its 2048-d audio features;
 - the conv probe: ``selavi_tpu_torch.experiments.conv3x3``'s ``check()``
   and ``bench()``, which run the conv3x3 forward, dgrad and wgrad kernels
   and time them beside cuDNN at R(2+1)D layer1's shape (all three bf16
@@ -64,7 +76,9 @@ it compares, checks that an M off a 16-byte boundary is refused and that
 the solver and the main path launch the kernel once an iteration, and
 prints the kernel's registers and spills, its grid, the host's time to
 enqueue an iteration and the solver's it/s at paper scale in fp32 and
-bf16. Every phase raises on failure, so any failure exits non-zero. Standard output ends with a line
+bf16. Every SK step prints its split (aggregation, matching, the solves;
+``selflabel/engine.py::timings``) beside its ``sk_time``. Every phase
+raises on failure, so any failure exits non-zero. Standard output ends with a line
 ``{"kernels": [...]}`` and then the result line ``{"ok": true, "device":
 {...}}``; logs go to standard error.
 
@@ -112,6 +126,19 @@ PACK_ARGS = ("--train_crop_size 160 --pack_video_format yuv420 "
              "--pack_pcm_dtype int16")
 PACK_SHAPE = [30, 160, 160, 3]
 PCM_SAMPLES = 48000  # one second at 48 kHz
+# The eval path: root get_clusters.py's defaults (fp32, batch 64, 8 loader
+# threads) on the main path's dataset, widths and spectrograms.
+EVAL_ARGS = (
+    "--ds_name synthetic --num_data_samples 480 --headcount 10 "
+    "--mlp_dim 309 --num_frames 30 --train_crop_size 112 --aud_spec_type 2 "
+    "--aud_sample_rate 48000 --z_normalize false --seed 31 --batch_size 64 "
+    "--workers 8"
+)
+EVAL_CPU_SAMPLES = 16  # recomputed by the port on the CPU
+# The card's fp32 logits (cuDNN, TF32 off) against the CPU's on the same
+# samples and weights: the same products summed in another order through
+# 18 layers; of max |logit| over the heads.
+EVAL_RTOL = 1e-3
 # The card's frontend against the host's numpy float64 spectrogram, of the
 # z-normalized values (JAX's own test of its frontend uses the same).
 FRONTEND_RTOL = FRONTEND_ATOL = 2e-3
@@ -465,6 +492,7 @@ def cli_path(torch, sf, device, report, dump):
     check(os.path.isfile(os.path.join(dump, "checkpoints", "ckp-0.pth")),
           "run 1 archived epoch 0")
     nbytes = os.path.getsize(path)
+    sk_split_line("CLI run 1", sk[0], report)
     matcher_line(matcher, args.headcount, report)
     for name, rec in zip(("epoch 0", "preemption"), saves):
         print(f"save_checkpoint ({name}) on {report['card']}: held the step "
@@ -601,6 +629,241 @@ def matcher_line(rec, heads, report):
                          "total_s": rec["total_s"], "python_loop_s": loop_s}
 
 
+def sk_split_line(label, sk, report):
+    """Print the last SK step's split (``selflabel/engine.py::timings``)
+    beside its ``sk_time``; the spans must fit inside it."""
+    from selavi_tpu_torch.selflabel import engine
+
+    t = dict(engine.timings)
+    spans = t["aggregate_s"] + t["match_s"] + t["solve_s"]
+    print(f"SK split ({label}) on {report['card']}: sk_time "
+          f"{sk['sk_time']:.4f} s = aggregation {t['aggregate_s']:.4f} s + "
+          f"matching {t['match_s']:.4f} s + solves {t['solve_s']:.4f} s "
+          f"({sk['sk_iters_total']} iterations) + the rest "
+          f"{sk['sk_time'] - spans:.4f} s", flush=True)
+    check(set(t) == {"aggregate_s", "match_s", "solve_s"}
+          and spans <= sk["sk_time"],
+          f"the SK split {t} fits inside sk_time {sk['sk_time']}")
+    report.setdefault("sk_split", {})[label] = dict(t, sk_time=sk["sk_time"])
+
+
+def eval_path(torch, device, report, dump):
+    """Phase 3a: the cluster-quality evaluation of run 2's checkpoint at
+    full width: ``cli.get_clusters`` (fp32) writes the dump, whose schema,
+    labels and finite values are checked and whose first EVAL_CPU_SAMPLES
+    samples the port recomputes on the CPU; ``cli.clustering_metrics``
+    reports on it."""
+    import pickle
+
+    import numpy as np
+
+    from selavi_tpu_torch.cli import clustering_metrics, get_clusters
+    from selavi_tpu_torch.data.factory import (
+        audio_cfg_from_args,
+        build_dataset,
+    )
+    from selavi_tpu_torch.data.loader import DataLoader
+    from selavi_tpu_torch.models.av_model import load_model
+    from selavi_tpu_torch.train import step as steps
+    from selavi_tpu_torch.train.checkpoint import (
+        CKPT_NAME,
+        load_model_parameters,
+    )
+
+    weights = os.path.join(dump, CKPT_NAME)
+    out = os.path.join(dump, "ps_matrices.pkl")
+    argv = EVAL_ARGS.split() + ["--weights_path", weights, "--output_path",
+                                out]
+    args = get_clusters.parse_args(argv)
+    n, h, k = args.num_data_samples, args.headcount, args.mlp_dim
+    timed = {}
+    inner = get_clusters.dump_cluster_matrices
+
+    def timed_dump(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = inner(*a, **kw)
+        torch.cuda.synchronize()
+        timed["s"] = time.perf_counter() - t0
+        return res
+
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    get_clusters.dump_cluster_matrices = timed_dump
+    try:
+        t0 = time.perf_counter()
+        ps_v, labels, ps_a = get_clusters.main(argv)
+        wall = time.perf_counter() - t0
+    finally:
+        get_clusters.dump_cluster_matrices = inner
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    with open(out, "rb") as f:
+        payload = pickle.load(f)
+    schema = (
+        len(payload) == 3 and len(payload[0]) == len(payload[2]) == h
+        and all(isinstance(m, torch.Tensor) and m.dtype == torch.float32
+                and tuple(m.shape) == (n, k) and bool(torch.isfinite(m).all())
+                for m in payload[0] + payload[2])
+        and payload[1].dtype == torch.int64
+        and tuple(payload[1].shape) == (n,))
+    dataset = build_dataset(args, eval_mode=True)
+    dump_s = timed["s"]
+    print(f"get_clusters CLI on run 2's checkpoint ({n} samples, fp32, batch "
+          f"{args.batch_size}, {args.workers} loader threads) on "
+          f"{report['card']}: dump {dump_s:.2f} s, {n / dump_s:.2f} clips/s; "
+          f"CLI {wall:.2f} s (model and checkpoint load included); peak "
+          f"memory {peak:.2f} GB ({resident:.2f} GB resident before); pickle "
+          f"{os.path.getsize(out)} bytes, {h} float32 [{n}, {k}] tensors a "
+          f"side and int64 labels [{n}]: {schema}", flush=True)
+    check(schema, "the dump's schema, dtypes, shapes and finite values")
+    check(np.array_equal(labels, dataset.labels), "the dump's labels")
+
+    # The first samples again, on the CPU in fp32 from the same file.
+    cpu_model = load_model(aud_base_arch=args.aud_base_arch,
+                           use_mlp=args.use_mlp, headcount=h, num_classes=k,
+                           device="cpu")
+    load_model_parameters(cpu_model, weights)
+    batch = next(iter(DataLoader(dataset, batch_size=EVAL_CPU_SAMPLES,
+                                 shuffle=False, drop_last=False,
+                                 device="cpu")))
+    t0 = time.perf_counter()
+    feat_v, feat_a = steps.encode(cpu_model, batch["video"], batch["audio"],
+                                  augment=False,
+                                  audio_cfg=audio_cfg_from_args(args))
+    ref_v = steps.head_logits(cpu_model, feat_v, "v").numpy()
+    ref_a = steps.head_logits(cpu_model, feat_a, "a").numpy()
+    cpu_s = time.perf_counter() - t0
+    rows = batch["index"].numpy()
+    err = max(float(np.abs(ps_v[:, rows] - ref_v).max() / np.abs(ref_v).max()),
+              float(np.abs(ps_a[:, rows] - ref_a).max() / np.abs(ref_a).max()))
+    print(f"dump vs the port on the CPU (first {EVAL_CPU_SAMPLES} samples, "
+          f"fp32, {cpu_s:.1f} s there): max |card - cpu| / max |cpu| "
+          f"{err:.3g} (tolerance {EVAL_RTOL})", flush=True)
+    check(err <= EVAL_RTOL, "the card's dump agrees with the CPU's")
+    del cpu_model
+
+    t0 = time.perf_counter()
+    metrics = clustering_metrics.main(["--path", out, "--ncentroids", str(k)])
+    metrics_s = time.perf_counter() - t0
+    print(f"clustering_metrics CLI on the dump ({metrics_s:.2f} s on the "
+          f"host): {json.dumps(metrics)}", flush=True)
+    check(list(metrics) == ["nmi", "anmi", "ari", "entropy", "purity",
+                            "accuracy"]
+          and all(math.isfinite(v) for v in metrics.values()),
+          "six finite metrics")
+    report["eval"] = {"dump_s": dump_s, "clips_per_s": n / dump_s,
+                      "peak_mem_gb": peak, "cpu_rel_err": err,
+                      "metrics": metrics}
+
+
+def sk_cache_path(torch, sf, device, report, tmp):
+    """Phase 3e: one SK step of the recipe with ``--ind_groups 2``, without
+    and with ``--sk_cache_batches``: two aggregation loaders against one,
+    the fused SK kernel launched by both."""
+    from selavi_tpu_torch.config import parse_arguments
+    from selavi_tpu_torch.data.factory import build_dataset
+    from selavi_tpu_torch.train import loop
+
+    for cache in ("false", "true"):
+        argv = MAIN_ARGS.split() + ["--ind_groups", "2", "--sk_cache_batches",
+                                    cache, "--dump_path", tmp]
+        args = parse_arguments().parse_args(argv)
+        trainer = loop.Trainer(args, build_dataset(args))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        sf.reset_launches()
+        ran = trainer.maybe_cluster(0)
+        torch.cuda.synchronize()
+        launches = sf.launches
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        sk = trainer.history[-1]
+        loaders = trainer._eval_iter_count
+        del trainer
+        label = f"--ind_groups 2 --sk_cache_batches {cache}"
+        print(f"SK step ({label}) on {report['card']}: sk_time "
+              f"{sk['sk_time']:.4f} s, aggregation loaders {loaders}, fused "
+              f"SK launches {launches}, peak memory {peak:.2f} GB",
+              flush=True)
+        check(ran and math.isfinite(sk["sk_cost"]), f"{label}: an SK step")
+        sk_split_line(label, sk, report)
+        check(loaders == (1 if cache == "true" else 2),
+              f"{label}: {loaders} aggregation loaders")
+        check(launches > 0 and launches == sk["sk_iters_total"],
+              f"{label}: one fused SK launch per solver iteration")
+        report[f"sk_cache_{cache}"] = {"sk_time": sk["sk_time"],
+                                       "loaders": loaders,
+                                       "peak_mem_gb": peak}
+
+    # The aggregation's two parts, each alone: one pass of the loader, and
+    # one encode pass over its batches resident on the card.
+    from selavi_tpu_torch.selflabel import engine
+
+    trainer = loop.Trainer(args, build_dataset(args))
+    n = len(trainer.dataset)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batches = list(trainer._make_eval_iter())
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    engine.aggregate_features(trainer.sk_encode, iter(batches), n,
+                              trainer.sk_cfg.feat_dim, device,
+                              feat_dim_a=trainer.sk_cfg.feat_dim_a)
+    torch.cuda.synchronize()
+    encode_s = time.perf_counter() - t0
+    del trainer, batches
+    print(f"SK aggregation parts on {report['card']}: one loader pass "
+          f"{load_s:.4f} s ({n / load_s:.2f} clips/s), one encode pass over "
+          f"its batches resident on the card {encode_s:.4f} s "
+          f"({n / encode_s:.2f} clips/s, batch {args.sk_agg_batch}, bf16)",
+          flush=True)
+    report["sk_aggregation_parts"] = {"load_s": load_s, "encode_s": encode_s}
+
+
+def resnet50_path(torch, sf, device, report, tmp):
+    """Phase 3f: the recipe with the resnet50 audio tower: 3 train steps
+    with a finite loss, the step timed on a resident batch, and one SK step
+    on 2048-d audio features."""
+    from selavi_tpu_torch.config import parse_arguments
+    from selavi_tpu_torch.data.factory import build_dataset
+    from selavi_tpu_torch.data.loader import decode_wire_batch
+    from selavi_tpu_torch.train import loop
+
+    argv = MAIN_ARGS.split() + ["--aud_base_arch", "resnet50", "--dump_path",
+                                tmp]
+    args = parse_arguments().parse_args(argv)
+    trainer = loop.Trainer(args, build_dataset(args))
+    check(trainer.model.audio_network.feature_dim == 2048
+          and trainer.sk_cfg.feat_dim_a == 2048, "resnet50: 2048-d features")
+    batch = decode_wire_batch(next(iter(trainer.loader)))
+    labels = torch.zeros(batch["index"].shape[0], args.headcount,
+                         dtype=torch.long, device=device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    losses = [float(trainer.train_step(batch, labels, gen)["loss"])
+              for _ in range(3)]
+    check(all(math.isfinite(x) for x in losses), "resnet50: finite losses")
+    time_train(torch, trainer, report, prefix="r50_", epoch=False)
+    print(f"resnet50 audio tower train on {report['card']}: losses "
+          f"{[round(x, 4) for x in losses]}, "
+          f"{report['r50_train_clips_per_s']:.2f} clips/s (train step on a "
+          f"resident batch of 24, bf16), peak memory "
+          f"{report['r50_peak_mem_gb']:.2f} GB in the step", flush=True)
+    sf.reset_launches()
+    ran = trainer.maybe_cluster(0)
+    torch.cuda.synchronize()
+    launches = sf.launches
+    sk = trainer.history[-1]
+    del trainer
+    print(f"resnet50 SK step on {report['card']}: sk_time "
+          f"{sk['sk_time']:.4f} s, fused SK launches {launches}, SK {sk}",
+          flush=True)
+    check(ran and math.isfinite(sk["sk_cost"]), "resnet50: an SK step")
+    sk_split_line("resnet50", sk, report)
+    check(launches > 0 and launches == sk["sk_iters_total"],
+          "resnet50: one fused SK launch per solver iteration")
+
+
 def loader_modes_path(torch, sf, device, report, tmp):
     """Phase 3b: the CLI at full width with spawned loader workers, data
     echo 2 and coalesced transfers (one epoch, BN warmup, one SK step with
@@ -680,6 +943,7 @@ def loader_modes_path(torch, sf, device, report, tmp):
           f"one fused SK launch per solver iteration: {launches} launches, "
           f"{sk[0]['sk_iters_total']} iterations")
     check(pool_closed and not alive, f"worker processes stopped: {alive}")
+    sk_split_line("loader modes", sk[0], report)
     report["modes_launches"] = launches
 
 
@@ -733,6 +997,7 @@ def dual_data_path(torch, sf, device, report, tmp):
           and launches == sk[0]["sk_iters_total"] > 0,
           "one SK step, one fused launch per iteration")
     check(all(math.isfinite(x) for x in losses), "dual losses finite")
+    sk_split_line("dual_data", sk[0], report)
 
     args = parse_arguments().parse_args(argv)
     fresh = loop.Trainer(args, build_dataset(args))
@@ -1022,6 +1287,7 @@ def packed_path(torch, sf, device, report, tmp):
     check(train_fed == {(24, 257, 99, 1)}
           and all(d == device for _, d, _ in fed),
           "the audio stem was fed [24, 257, 99, 1] on the card")
+    sk_split_line("packed", sk[0], report)
     report["packed_launches"] = launches
 
     args = parse_arguments().parse_args(argv)
@@ -1264,10 +1530,12 @@ def main() -> int:
     dump = tempfile.mkdtemp(prefix="chip_smoke_run_")
     try:
         trainer = cli_path(torch, sf, device, report, dump)
+        eval_path(torch, device, report, dump)
     finally:
         _restore_process_state()
         shutil.rmtree(dump, ignore_errors=True)
-    for phase in (loader_modes_path, dual_data_path, packed_path):
+    for phase in (loader_modes_path, dual_data_path, packed_path,
+                  sk_cache_path, resnet50_path):
         tmp = tempfile.mkdtemp(prefix=f"chip_smoke_{phase.__name__}_")
         try:
             phase(torch, sf, device, report, tmp)

@@ -5,7 +5,9 @@ line, run by the port's Trainer on one card.
         --headcount 10 ... --dump_path runs/x
 
 Running the same command again resumes from ``{dump_path}/checkpoint.pth``
-(after a preemption: at the interrupted epoch).
+(after a preemption: at the interrupted epoch). Where tensorboardX imports,
+rank 0 also writes TensorBoard events into ``{dump_path}``; without it the
+run goes on with no writer, as the JAX CLI does.
 """
 
 from __future__ import annotations
@@ -29,20 +31,33 @@ def main(argv=None, device=None):
     args = parser.parse_args(argv)
     device = resolve_device(device)
 
-    init_distributed_mode(args)
+    rank, _ = init_distributed_mode(args)
     init_signal_handler()
     if args.max_host_mem_gb:
         init_memory_watchdog(args.max_host_mem_gb)
     fix_random_seeds(args.seed)
     logger, training_stats = initialize_exp(args, "epoch", "loss")
 
+    writer = None
+    if rank == 0:
+        try:
+            from tensorboardX import SummaryWriter
+
+            writer = SummaryWriter(args.dump_path)
+        except ImportError:
+            pass
+
     dataset = build_dataset(args)
     logger.info("Loaded data with %d videos.", len(dataset))
 
-    trainer = Trainer(args, dataset, device=device)
+    trainer = Trainer(args, dataset, device=device, writer=writer)
     logger.info("Device %s, batch %d", trainer.device,
                 trainer.loader.batch_size)
-    history = trainer.fit()
+    try:
+        history = trainer.fit()
+    finally:
+        if writer is not None:
+            writer.close()
     # one row per epoch: the Trainer also records the logged iterations
     for rec in history:
         if "epoch" in rec and "iter" not in rec:

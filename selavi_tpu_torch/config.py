@@ -4,9 +4,9 @@ The port's Trainer reads the same ``args`` namespace as the JAX package's,
 so recipes carry over. ``--sk_backend`` also takes the port's own names
 (``fused``, ``plain``) beside the JAX ones (``pallas``, ``xla``), which
 mean the same backends here. Flags for paths the port does not run yet (the
-mesh's model axis, the SK batch cache) are kept so that one command line
-serves both packages; the Trainer refuses a value other than their
-default (``train/loop.py::UNPORTED_FLAGS``).
+mesh's model axis) are kept so that one command line serves both
+packages; the Trainer refuses a value other than their default
+(``train/loop.py::UNPORTED_FLAGS``).
 """
 
 from __future__ import annotations

@@ -23,6 +23,8 @@ from typing import Dict, Iterator, Tuple
 import numpy as np
 import torch
 
+from selavi_tpu_torch.models.resnet_audio import Bottleneck2D
+
 
 def _leaf_paths(tree, prefix=()) -> Iterator[Tuple[str, ...]]:
     for key, value in tree.items():
@@ -122,8 +124,13 @@ def _walk_video(w: _Walker, has_downsample) -> None:
                 w.bn(f"{t}.downsample.bn", v, name, "downsample", "bn", "bn")
 
 
-def _walk_audio(w: _Walker, n_blocks: int, has_downsample) -> None:
+def _walk_audio(w: _Walker, n_blocks: int, bottleneck: bool,
+                has_downsample) -> None:
+    """flax names a block's ConvBNs in call order: conv1, conv2 (, conv3
+    for a Bottleneck), then the projection."""
     a = "audio_network"
+    block_cls = "Bottleneck2D" if bottleneck else "BasicBlock2D"
+    convs = ("conv1", "conv2", "conv3") if bottleneck else ("conv1", "conv2")
 
     def convbn(tprefix, *path):
         w.conv(f"{tprefix}.conv.weight", *path, "Conv_0")
@@ -132,11 +139,11 @@ def _walk_audio(w: _Walker, n_blocks: int, has_downsample) -> None:
     convbn(f"{a}.stem", a, "ConvBN_0")
     for i in range(n_blocks):
         t = f"{a}.blocks.{i}"
-        block = f"BasicBlock2D_{i}"
-        convbn(f"{t}.conv1", a, block, "ConvBN_0")
-        convbn(f"{t}.conv2", a, block, "ConvBN_1")
+        block = f"{block_cls}_{i}"
+        for j, name in enumerate(convs):
+            convbn(f"{t}.{name}", a, block, f"ConvBN_{j}")
         if has_downsample(f"{t}.downsample.conv.weight"):
-            convbn(f"{t}.downsample", a, block, "ConvBN_2")
+            convbn(f"{t}.downsample", a, block, f"ConvBN_{len(convs)}")
 
 
 def _walk_heads(w: _Walker, name: str, use_mlp: bool) -> None:
@@ -155,7 +162,9 @@ def _walk_heads(w: _Walker, name: str, use_mlp: bool) -> None:
 
 def _walk(w: _Walker, model, state) -> None:
     _walk_video(w, lambda key: key in state)
-    _walk_audio(w, len(model.audio_network.blocks), lambda key: key in state)
+    _walk_audio(w, len(model.audio_network.blocks),
+                isinstance(model.audio_network.blocks[0], Bottleneck2D),
+                lambda key: key in state)
     _walk_heads(w, "heads_v", model.heads_v.use_mlp)
     _walk_heads(w, "heads_a", model.heads_a.use_mlp)
 

@@ -3,7 +3,10 @@
 
 1. Run the model in eval mode over the whole training set (with train
    augmentations) and scatter the pooled features into ``[N, D]`` on the
-   device by sample index.
+   device by sample index. Each group of heads (``ind_groups``) reads the
+   dataset again, or, with ``cache_group_batches``, re-reads the device
+   batches that the first group kept as it encoded them, so that only the
+   device augmentations differ.
 2. At the first SK step with ``match``, align each audio head's clusters to
    its video head (greedy swap search) and permute the audio head's final
    Dense in place.
@@ -11,7 +14,14 @@
    ``softmax_v * softmax_a`` under the configured cluster marginal and
    write the row-argmax into ``selflabels[:, head]``.
 4. Report the SK cost and NMI against the previous labels and the ground
-   truth.
+   truth (and adjusted MI against it), as ``train/{k}`` scalars to a
+   TensorBoard ``writer`` when one is given, with the per-cluster entropy
+   and purity histograms every 10th SK step.
+
+The module-level ``timings`` holds the last SK step's seconds: feature
+aggregation (``aggregate_s``, every group), modality matching
+(``match_s``) and the SK solves summed over heads (``solve_s``). On CUDA
+each boundary synchronises the device, so each span holds its own work.
 """
 
 from __future__ import annotations
@@ -24,11 +34,19 @@ from typing import Callable, Iterator, Optional
 import numpy as np
 import torch
 
+from selavi_tpu_torch.eval.clustering import (
+    adjusted_mutual_info,
+    cluster_entropy_purity,
+    normalized_mutual_info,
+)
 from selavi_tpu_torch.selflabel.marginals import MarginalState, get_marginal
 from selavi_tpu_torch.selflabel.matching import match_order
 from selavi_tpu_torch.selflabel.sinkhorn import sinkhorn_knopp
 
 logger = logging.getLogger(__name__)
+
+# The last SK step's split, in seconds (see the module docstring).
+timings: dict = {}
 
 
 @dataclasses.dataclass
@@ -46,6 +64,9 @@ class SKConfig:
     sk_max_iters: int = 2000
     sk_backend: str = "auto"  # 'auto' | 'fused' | 'plain' (JAX: 'pallas' | 'xla')
     sk_m_bf16: bool = False  # bf16 storage of M (half the solver's bytes)
+    # keep the first aggregation pass's device batches for the other
+    # groups: one read of the dataset an SK step (N samples on the device)
+    cache_group_batches: bool = False
     feat_dim: int = 512  # video GAP width
     feat_dim_a: Optional[int] = None  # audio GAP width; None -> feat_dim
 
@@ -72,32 +93,16 @@ def aggregate_features(
     return ps_v, ps_a
 
 
-def normalized_mutual_info(a: np.ndarray, b: np.ndarray) -> float:
-    """NMI with the arithmetic-mean normalizer (sklearn's default)."""
-    _, ai = np.unique(a, return_inverse=True)
-    _, bi = np.unique(b, return_inverse=True)
-    if ai.max(initial=0) == 0 and bi.max(initial=0) == 0:
-        return 1.0
-    joint = np.zeros((ai.max() + 1, bi.max() + 1), np.float64)
-    np.add.at(joint, (ai, bi), 1.0)
-    p = joint / joint.sum()
-    pa, pb = p.sum(1), p.sum(0)
-    nz = p > 0
-    mi = float((p[nz] * np.log(p[nz] / np.outer(pa, pb)[nz])).sum())
-    ha = float(-(pa * np.log(pa)).sum())
-    hb = float(-(pb * np.log(pb)).sum())
-    return mi / max(0.5 * (ha + hb), np.finfo(np.float64).eps)
+def _kept(batches: Iterator[dict], store: list) -> Iterator[dict]:
+    """Yield ``batches``, appending each to ``store``."""
+    for batch in batches:
+        store.append(batch)
+        yield batch
 
 
-def cluster_entropy_purity(pred: np.ndarray, truth: np.ndarray):
-    """Per-cluster ground-truth entropy and purity arrays."""
-    entropies, purities = [], []
-    for c in np.unique(pred):
-        _, counts = np.unique(truth[pred == c], return_counts=True)
-        frac = counts / counts.sum()
-        purities.append(frac.max())
-        entropies.append(float(-(frac * np.log(frac)).sum()))
-    return np.asarray(entropies), np.asarray(purities)
+def _synchronize(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def cluster(
@@ -114,6 +119,7 @@ def cluster(
     device,
     audio_heads=None,
     true_labels: Optional[np.ndarray] = None,
+    writer=None,
     sk_counter: int = 0,
 ) -> tuple[np.ndarray, MarginalState, dict]:
     """One full re-clustering step.
@@ -121,10 +127,12 @@ def cluster(
     ``encode_fn(video, audio) -> (feat_v, feat_a)`` gives eval-mode pooled
     features; ``head_logits_fn(feats [N,D], modality) -> [H, N, K]`` applies
     the current heads (modality 'v' or 'a'). ``audio_heads`` (a
-    ``HeadStack``) is permuted in place when matching runs. Returns
+    ``HeadStack``) is permuted in place when matching runs. ``writer`` (a
+    TensorBoard ``SummaryWriter`` or None) gets the metrics. Returns
     ``(new_selflabels [N, H], marginal_state, metrics)``.
     """
     t_start = time.time()
+    timings.update(aggregate_s=0.0, match_s=0.0, solve_s=0.0)
     old_labels = selflabels.copy()
     new_labels = selflabels.copy()
     costs, iters = [], []
@@ -134,16 +142,29 @@ def cluster(
     if cfg.ind_groups > cfg.headcount:
         raise ValueError("ind_groups must not exceed headcount")
 
+    cached_batches = None
     for grp in range(cfg.ind_groups):
         heads_in_group = order_heads[grp :: cfg.ind_groups]
+        t0 = time.perf_counter()
+        if not cfg.cache_group_batches:
+            batch_iter = make_batch_iter()
+        elif cached_batches is None:
+            # the first group encodes each batch as it arrives and keeps it
+            cached_batches = []
+            batch_iter = _kept(make_batch_iter(), cached_batches)
+        else:
+            batch_iter = iter(cached_batches)
         ps_v, ps_a = aggregate_features(
-            encode_fn, make_batch_iter(), n, cfg.feat_dim, device,
+            encode_fn, batch_iter, n, cfg.feat_dim, device,
             feat_dim_a=cfg.feat_dim_a,
         )
+        _synchronize(device)
+        timings["aggregate_s"] += time.perf_counter() - t0
 
         if cfg.match and iter_num == 0:
             if audio_heads is None:
                 raise ValueError("matching needs the audio HeadStack")
+            t0 = time.perf_counter()
             logits_v_all = head_logits_fn(ps_v, "v")
             logits_a_all = head_logits_fn(ps_a, "a")
             for head in heads_in_group:
@@ -154,6 +175,8 @@ def cluster(
                     "matched head %d (perm fixed points: %d/%d)", head,
                     int((perm == np.arange(len(perm))).sum()), len(perm),
                 )
+            _synchronize(device)
+            timings["match_s"] += time.perf_counter() - t0
 
         all_logits_v = head_logits_fn(ps_v, "v")
         all_logits_a = head_logits_fn(ps_a, "a")
@@ -169,13 +192,16 @@ def cluster(
                 gauss_sd=cfg.gauss_sd, diff_dist_every=cfg.diff_dist_every,
                 diff_dist_per_head=cfg.diff_dist_per_head, rng=np_rng,
             )
-            t0 = time.time()
+            _synchronize(device)
+            t0 = time.perf_counter()
             res = sinkhorn_knopp(
                 log_ps, torch.from_numpy(log_r).to(log_ps.device),
                 lamb=cfg.lamb, tol=cfg.sk_tol, max_iters=cfg.sk_max_iters,
                 backend=cfg.sk_backend, m_bf16=cfg.sk_m_bf16,
             )
             head_labels = res.labels.cpu().numpy().astype(np.int32)
+            solve_s = time.perf_counter() - t0
+            timings["solve_s"] += solve_s
             new_labels[:, head] = head_labels
             costs.append(res.cost)
             iters.append(res.iters)
@@ -197,7 +223,7 @@ def cluster(
                     float(overfill[worst]), float(expected[worst]),
                 )
             logger.info("head %d: SK cost %.3f, err %.3g, %d iters, %.2fs",
-                        head, res.cost, res.err, res.iters, time.time() - t0)
+                        head, res.cost, res.err, res.iters, solve_s)
 
     metrics = {
         "sk_cost": float(np.mean(costs)),
@@ -207,9 +233,12 @@ def cluster(
         "nmi_vs_old": normalized_mutual_info(new_labels[:, 0],
                                              old_labels[:, 0]),
     }
+    histograms = {}
     if true_labels is not None:
         metrics["nmi_vs_gt"] = normalized_mutual_info(new_labels[:, 0],
                                                       true_labels)
+        metrics["anmi_vs_gt"] = adjusted_mutual_info(new_labels[:, 0],
+                                                     true_labels)
         for head in range(1, cfg.headcount):
             metrics[f"nmi_vs_gt_head{head}"] = normalized_mutual_info(
                 new_labels[:, head], true_labels)
@@ -217,6 +246,12 @@ def cluster(
             ents, purs = cluster_entropy_purity(new_labels[:, 0], true_labels)
             metrics["avg_entropy"] = float(np.mean(ents))
             metrics["avg_purity"] = float(np.mean(purs))
+            histograms = {"entropies": ents, "purities": purs}
+    if writer is not None:
+        for k, v in metrics.items():
+            writer.add_scalar(f"train/{k}", v, iter_num)
+        for k, v in histograms.items():
+            writer.add_histogram(f"train/{k}", v, iter_num)
     logger.info("SK step @ iter %d: %s", iter_num,
                 {k: round(v, 4) for k, v in metrics.items()})
     return new_labels, marginal_state, metrics

@@ -3,10 +3,15 @@
 Resume from ``{dump_path}/checkpoint.pth`` if there is one, BN warmup when
 starting at epoch 0, then the epoch loop: each step trains on the current
 self-labels, and on the power-law schedule ``maybe_cluster`` re-labels the
-dataset with Sinkhorn-Knopp (``selflabel/engine.py::cluster``). Loss is
-logged every 50 iterations, and an epoch returns the JAX Trainer's
-``AverageMeter`` mean of those losses. A checkpoint follows every epoch;
-SIGUSR1 or host-memory pressure writes one mid-epoch and exits 0.
+dataset with Sinkhorn-Knopp (``selflabel/engine.py::cluster``;
+``--sk_cache_batches`` keeps its first aggregation pass's device batches
+for the other ``--ind_groups`` passes). Loss is logged every 50
+iterations, and to a TensorBoard ``writer`` when the caller gives one
+(``loss/iter``, ``batch_time/iter``, ``data_time/iter``, as the JAX
+Trainer writes them; the engine adds its ``train/*`` metrics), and an
+epoch returns the JAX Trainer's ``AverageMeter`` mean of those losses. A
+checkpoint follows every epoch; SIGUSR1 or host-memory pressure writes one
+mid-epoch and exits 0.
 
 Batches come from any dataset of ``data/factory.py``: spectrograms or raw
 PCM (``--device_spectrogram``, or a packed shard), RGB or YUV 4:2:0 video,
@@ -20,9 +25,9 @@ PCM into spectrograms there (``train/step.py::prepare_audio`` with the
 args' ``audio_cfg``). With ``--data_echo N`` each loaded batch trains N
 steps, each with fresh augmentations, and the epoch, the SK schedule and
 its fast-forward count N times the loader's batches. Multi-device meshes
-and the SK batch cache (``UNPORTED_FLAGS``) are not ported yet: a flag that
-asks for one of them makes the Trainer raise rather than train something
-other than what the JAX Trainer would.
+(``UNPORTED_FLAGS``) are not ported yet: a flag that asks for one makes
+the Trainer raise rather than train something other than what the JAX
+Trainer would.
 """
 
 from __future__ import annotations
@@ -53,6 +58,7 @@ from selavi_tpu_torch.selflabel.schedule import (
 from selavi_tpu_torch.train import step as steps
 from selavi_tpu_torch.train.checkpoint import (
     CKPT_NAME,
+    REFERENCE_IMPORT_ITEM,
     restore_checkpoint,
     save_checkpoint,
     wait_for_pending_checkpoint,
@@ -73,7 +79,6 @@ JAX_CKPT_NAME = "checkpoint.msgpack"
 # Trainer does not implement: flag -> (default, the ROADMAP Queue 1 item
 # that ports it). Any other value raises NotImplementedError.
 UNPORTED_FLAGS = {
-    "sk_cache_batches": (False, "9 (SK phase: cached aggregation batches)"),
     "model_axis": (1, MULTI_GPU_ITEM),
 }
 
@@ -91,10 +96,11 @@ def refuse_unported_flags(args) -> None:
 
 
 class Trainer:
-    def __init__(self, args, dataset, device=None):
+    def __init__(self, args, dataset, device=None, writer=None):
         refuse_unported_flags(args)
         self.args = args
         self.dataset = dataset
+        self.writer = writer  # a TensorBoard SummaryWriter, or None
         self.device = resolve_device(device)
         self.compute_dtype = (
             torch.bfloat16
@@ -151,6 +157,7 @@ class Trainer:
             diff_dist_per_head=args.diff_dist_per_head,
             sk_backend=getattr(args, "sk_backend", "auto"),
             sk_m_bf16=getattr(args, "sk_bf16", False),
+            cache_group_batches=getattr(args, "sk_cache_batches", False),
             feat_dim_a=AUDIO_ARCHS[args.aud_base_arch][2],
         )
         self.sk_schedule = make_sk_schedule(
@@ -224,27 +231,29 @@ class Trainer:
         finally:
             loader.close()
 
+    def sk_encode(self, video, audio):
+        """The SK aggregation's pooled features of one batch: eval mode,
+        with the train-time augmentations drawn from ``agg_gen``."""
+        return steps.encode(
+            self.model, video, audio, self.agg_gen,
+            augment=self.sk_augment, colorjitter=self.args.colorjitter,
+            grayscale=self.args.use_grayscale,
+            compute_dtype=self.compute_dtype, audio_cfg=self.audio_cfg,
+            video_clips=self.video_clips,
+        )
+
     def maybe_cluster(self, iteration: int) -> bool:
         """Run SK if the schedule says so."""
         if iteration < self.sk_schedule[-1]:
             return False
         self.sk_schedule.pop()
 
-        def encode_fn(video, audio):
-            return steps.encode(
-                self.model, video, audio, self.agg_gen,
-                augment=self.sk_augment, colorjitter=self.args.colorjitter,
-                grayscale=self.args.use_grayscale,
-                compute_dtype=self.compute_dtype, audio_cfg=self.audio_cfg,
-                video_clips=self.video_clips,
-            )
-
         def head_logits_fn(feats, modality):
             return steps.head_logits(self.model, feats, modality,
                                      self.compute_dtype)
 
         labels, marginals, metrics = cluster(
-            encode_fn=encode_fn,
+            encode_fn=self.sk_encode,
             head_logits_fn=head_logits_fn,
             make_batch_iter=self._make_eval_iter,
             n=len(self.dataset),
@@ -256,6 +265,7 @@ class Trainer:
             device=self.device,
             audio_heads=self.model.heads_a,
             true_labels=self.true_labels,
+            writer=self.writer,
             sk_counter=self.sl_state.sk_counter,
         )
         self.sl_state.selflabels = labels
@@ -303,6 +313,13 @@ class Trainer:
                     "Loss %.4f (%.4f)", epoch, it, batch_time.val,
                     batch_time.avg, data_time.val, data_time.avg, losses.val,
                     losses.avg)
+                if self.writer is not None:
+                    iteration = batches_thusfar + it
+                    self.writer.add_scalar("loss/iter", loss, iteration)
+                    self.writer.add_scalar("batch_time/iter", batch_time.avg,
+                                           iteration)
+                    self.writer.add_scalar("data_time/iter", data_time.avg,
+                                           iteration)
             if signal_received() or memory_pressure():
                 # mid-epoch: stamp the CURRENT epoch as the resume point so
                 # the interrupted epoch re-runs in full, with its scheduled
@@ -342,8 +359,8 @@ class Trainer:
                 f"resume from it: cross-framework resume is out of scope "
                 f"(docs/DEVIATIONS.md item 8). Its weights alone can move: "
                 f"export_torch.py writes them in the reference .pth layout, "
-                f"whose import into the port is ROADMAP Queue 1 item 10 "
-                f"(evaluation tools)")
+                f"whose import into the port is ROADMAP Queue 1 item "
+                f"{REFERENCE_IMPORT_ITEM}")
         start_epoch = self.resume()
         try:
             if start_epoch == 0:

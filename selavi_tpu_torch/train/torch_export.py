@@ -34,13 +34,13 @@ import torch
 from selavi_tpu_torch.models.av_model import load_model
 from selavi_tpu_torch.models.convert import export_jax_variables
 from selavi_tpu_torch.models.r2plus1d import _midplanes
+from selavi_tpu_torch.models.resnet_audio import AUDIO_ARCHS
 
 logger = logging.getLogger(__name__)
 
-# audio blocks in the port's state_dict -> (arch, blocks per stage)
-_AUDIO_BY_BLOCKS = {4: ("resnet9", (1, 1, 1, 1)),
-                    8: ("resnet18", (2, 2, 2, 2)),
-                    16: ("resnet34", (3, 4, 6, 3))}
+# (audio blocks in the port's state_dict, Bottleneck blocks) -> arch
+_AUDIO_BY_BLOCKS = {(4, False): "resnet9", (8, False): "resnet18",
+                    (16, False): "resnet34", (16, True): "resnet50"}
 
 
 def _conv_out(kernel) -> np.ndarray:
@@ -112,9 +112,16 @@ def export_audio_tower(
     prefix: str = "audio_network.base.",
     stage_blocks: Tuple[int, ...] = (1, 1, 1, 1),
 ) -> Dict[str, np.ndarray]:
-    """AudioResNet trees (BasicBlock archs: the port has no Bottleneck)
-    -> torchvision ResNet keys."""
+    """AudioResNet trees -> torchvision ResNet keys: BasicBlocks
+    (resnet9/18/34: conv1/bn1, conv2/bn2 [, downsample]) or Bottlenecks
+    (resnet50: conv1..3/bn1..3 [, downsample]), the kind read off the
+    flax block names."""
     sd: Dict[str, np.ndarray] = {}
+    bottleneck = any(k.startswith("Bottleneck2D_") for k in params)
+    block_cls = "Bottleneck2D" if bottleneck else "BasicBlock2D"
+    pairs = [("conv1", "bn1"), ("conv2", "bn2")]
+    if bottleneck:
+        pairs.append(("conv3", "bn3"))
 
     def put_convbn(tree_p: dict, tree_bs: dict, tconv: str, tbn: str):
         sd[f"{tconv}.weight"] = _conv_out(tree_p["Conv_0"]["kernel"])
@@ -126,14 +133,14 @@ def export_audio_tower(
     for stage, nblocks in enumerate(stage_blocks, 1):
         for b in range(nblocks):
             t = f"{prefix}layer{stage}.{b}."
-            bname = f"BasicBlock2D_{block_idx}"
+            bname = f"{block_cls}_{block_idx}"
             inner_p, inner_bs = params[bname], batch_stats[bname]
-            for j, (conv_i, bn_i) in enumerate((("conv1", "bn1"),
-                                                ("conv2", "bn2"))):
+            for j, (conv_i, bn_i) in enumerate(pairs):
                 put_convbn(inner_p[f"ConvBN_{j}"], inner_bs[f"ConvBN_{j}"],
                            t + conv_i, t + bn_i)
-            if "ConvBN_2" in inner_p:
-                put_convbn(inner_p["ConvBN_2"], inner_bs["ConvBN_2"],
+            ds = f"ConvBN_{len(pairs)}"
+            if ds in inner_p:
+                put_convbn(inner_p[ds], inner_bs[ds],
                            t + "downsample.0", t + "downsample.1")
             block_idx += 1
     return sd
@@ -266,12 +273,13 @@ def model_for_state_dict(state: Dict[str, torch.Tensor]):
     proj = state["heads_v.proj_weight"]  # [H, I, K]
     blocks = {k.split(".")[2] for k in state
               if k.startswith("audio_network.blocks.")}
-    if len(blocks) not in _AUDIO_BY_BLOCKS:
+    kind = (len(blocks), "audio_network.blocks.0.conv3.conv.weight" in state)
+    if kind not in _AUDIO_BY_BLOCKS:
         raise ValueError(f"unrecognized audio tower: {len(blocks)} blocks")
     mid = state["video_network.layer1_block0.conv1.spatial.weight"].shape[0]
     model = load_model(
         audio_channels=state["audio_network.stem.conv.weight"].shape[1],
-        aud_base_arch=_AUDIO_BY_BLOCKS[len(blocks)][0],
+        aud_base_arch=_AUDIO_BY_BLOCKS[kind],
         use_mlp="heads_v.hidden_weight" in state,
         headcount=proj.shape[0],
         num_classes=proj.shape[2],
@@ -297,8 +305,7 @@ def export_our_checkpoint(ckpt_path: str, out_path: str):
         batch_stats,
         model.heads_v.headcount,
         use_mlp=model.heads_v.use_mlp,
-        audio_stage_blocks=_AUDIO_BY_BLOCKS[
-            len(model.audio_network.blocks)][1],
+        audio_stage_blocks=AUDIO_ARCHS[model.audio_network.arch][1],
         epoch=int(payload["epoch"]),
         selflabels=payload["selflabels"].numpy(),
         marginal_dists=None if dists is None else dists.numpy(),

@@ -26,7 +26,7 @@ from selavi_tpu.selflabel.engine import cluster as jax_cluster
 from selavi_tpu.selflabel.marginals import MarginalState as JaxMarginalState
 from selavi_tpu_torch import native
 from selavi_tpu_torch.models.heads import HeadStack
-from selavi_tpu_torch.selflabel import matching
+from selavi_tpu_torch.selflabel import engine, matching
 from selavi_tpu_torch.selflabel.engine import (
     SKConfig,
     aggregate_features,
@@ -59,18 +59,32 @@ def _batches(fv, fa, to_array, bs=16):
 
 @pytest.mark.parametrize("backend", ["plain", "fused"])
 @pytest.mark.parametrize("distribution", ["default", "gauss"])
-@pytest.mark.parametrize("ind_groups", [1, 3])
-def test_cluster_matches_jax(backend, distribution, ind_groups):
+@pytest.mark.parametrize("ind_groups,cache", [(1, False), (3, False),
+                                              (2, False), (2, True)])
+def test_cluster_matches_jax(backend, distribution, ind_groups, cache):
+    """With ``cache`` the groups re-read the first pass's batches: one
+    ``make_batch_iter`` call an SK step instead of one a group."""
     n, k, h, d = 64, 6, 3, 32
     true, fv, fa, wv, wa = _problem(n, k, h, d)
+    jcalls, calls = [], []
+
+    def jax_batch_iter():
+        jcalls.append(1)
+        return _batches(fv, fa, jnp.asarray)
+
+    def batch_iter():
+        calls.append(1)
+        return _batches(fv, fa, torch.from_numpy)
+
     jcfg = JaxSKConfig(headcount=h, num_clusters=k, ind_groups=ind_groups,
                        match=False, distribution=distribution,
-                       sk_backend="xla", feat_dim=d)
+                       sk_backend="xla", feat_dim=d,
+                       cache_group_batches=cache)
     jlabels, jstate, jmetrics, _ = jax_cluster(
         encode_fn=lambda v, a: (v, a),
         head_logits_fn=lambda p, f, m: jnp.einsum(
             "nd,hdk->hnk", f, jnp.asarray(wv if m == "v" else wa)),
-        make_batch_iter=lambda: _batches(fv, fa, jnp.asarray),
+        make_batch_iter=jax_batch_iter,
         params={}, n=n, cfg=jcfg, selflabels=np.zeros((n, h), np.int32),
         marginal_state=JaxMarginalState(), iter_num=1,
         np_rng=np.random.default_rng(7), true_labels=true,
@@ -78,25 +92,29 @@ def test_cluster_matches_jax(backend, distribution, ind_groups):
 
     cfg = SKConfig(headcount=h, num_clusters=k, ind_groups=ind_groups,
                    match=False, distribution=distribution, sk_backend=backend,
-                   feat_dim=d)
+                   feat_dim=d, cache_group_batches=cache)
     labels, state, metrics = cluster(
         encode_fn=lambda v, a: (v, a),
         head_logits_fn=lambda f, m: torch.einsum(
             "nd,hdk->hnk", f, torch.from_numpy(wv if m == "v" else wa)),
-        make_batch_iter=lambda: _batches(fv, fa, torch.from_numpy),
+        make_batch_iter=batch_iter,
         n=n, cfg=cfg, selflabels=np.zeros((n, h), np.int32),
         marginal_state=MarginalState(), iter_num=1,
         np_rng=np.random.default_rng(7), device="cpu", true_labels=true,
     )
+    assert len(calls) == len(jcalls) == (1 if cache else ind_groups)
     np.testing.assert_array_equal(labels, jlabels)
     if distribution == "gauss":
         np.testing.assert_array_equal(state.dists, jstate.dists)
     np.testing.assert_allclose(metrics["sk_cost"], jmetrics["sk_cost"],
                                rtol=1e-5)
-    np.testing.assert_allclose(metrics["nmi_vs_gt"], jmetrics["nmi_vs_gt"],
-                               rtol=1e-9)
-    np.testing.assert_allclose(metrics["nmi_vs_old"], jmetrics["nmi_vs_old"],
-                               rtol=1e-9, atol=1e-12)
+    for key in ("nmi_vs_gt", "anmi_vs_gt", "nmi_vs_old"):
+        np.testing.assert_allclose(metrics[key], jmetrics[key], rtol=1e-9,
+                                   atol=1e-12, err_msg=key)
+    # the split of the step: disjoint spans inside sk_time
+    assert set(engine.timings) == {"aggregate_s", "match_s", "solve_s"}
+    assert engine.timings["match_s"] == 0.0  # no matching at iter_num 1
+    assert 0 < sum(engine.timings.values()) <= metrics["sk_time"]
 
 
 @pytest.fixture(params=["native", "numpy"])
@@ -180,6 +198,7 @@ def test_cluster_with_matching_matches_jax(host_runtime, ind_groups):
     assert prng.bit_generator.state == jrng.bit_generator.state
     np.testing.assert_allclose(metrics["sk_cost"], jmetrics["sk_cost"],
                                rtol=1e-5)
+    assert engine.timings["match_s"] > 0
 
 
 def test_match_order_matches_jax(host_runtime, monkeypatch):

@@ -24,7 +24,6 @@ from selavi_tpu_torch.models.av_model import load_model
 from selavi_tpu_torch.models.common import FlaxBatchNorm
 from selavi_tpu_torch.models.convert import load_jax_variables
 from selavi_tpu_torch.models.heads import HeadStack
-from selavi_tpu_torch.models.resnet_audio import AudioResNet
 
 torch.set_num_threads(1)
 
@@ -200,8 +199,3 @@ def test_strict_load_rejects_mismatched_trees(damage):
                                                          np.float32)
     with pytest.raises((KeyError, ValueError)):
         _port_av(params, bs, use_mlp=False)
-
-
-def test_bottleneck_audio_arch_is_not_ported_yet():
-    with pytest.raises(NotImplementedError):
-        AudioResNet("resnet50")
