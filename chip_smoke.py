@@ -31,6 +31,23 @@ with the launch counts set to 0 just before and read just after each:
   are checked and whose first 16 samples' logits are held against the
   port's CPU result; ``selavi_tpu_torch.cli.clustering_metrics`` reports
   on it. The dump's seconds, clips/s and peak memory are printed;
+- the rest of the evaluation suite on run 2's checkpoint, which launches
+  no hand kernel (the counts must stay at 0): the checkpoint exported to
+  the reference ``.pth`` layout (``train/torch_export.py``) and imported
+  back (``train/torch_import.py``) bit for bit, and
+  ``selavi_tpu_torch.cli.get_clusters`` on the ``.pth`` giving the
+  checkpoint's dump; ``selavi_tpu_torch.cli.cluster_vis`` (its cluster
+  count); on a UCF-layout tree from ``scripts/make_real_media.py --layout
+  ucf`` (cv2 mp4s and WAV sidecars made on the machine, 128 px frames),
+  ``selavi_tpu_torch.cli.video_retrieval`` at the reference recipe (32
+  frames at 112 px, batch 32, max pool): v-v, a-v into the feature cache
+  and a-v again from it, with the features' seconds, clips/s, peak memory
+  and Recall@k, and the share of the card's kNN lists equal to an fp64
+  CPU solve; the finetune train step (batch 32 of 32x128x128, bf16) and
+  eval step on a resident batch from run 2's tower, then
+  ``selavi_tpu_torch.cli.finetune_video --dataset ucf101`` on fold 1, one
+  epoch, and again with ``--epochs 2 --resume true``, which must start at
+  epoch 1;
 - the loader modes: the same CLI recipe for one epoch with spawned loader
   workers, data echo 2 and coalesced transfers (``--worker_mode process
   --data_echo 2 --coalesce_transfers true``): twice the steps of the
@@ -135,6 +152,40 @@ EVAL_ARGS = (
     "--workers 8"
 )
 EVAL_CPU_SAMPLES = 16  # recomputed by the port on the CPU
+# The rest of the evaluation suite on run 2's checkpoint. A UCF-layout tree
+# from scripts/make_real_media.py (cv2 mp4s with WAV sidecars, 128 px
+# frames, 2 s at 30 fps, 48 kHz audio, 3 official-format folds), cut to 48
+# videos of 6 classes: fold 1 has 30 train and 18 test videos.
+UCF_MEDIA_ARGS = ("--layout ucf --num_videos 48 --num_classes 6 "
+                  "--frame_size 128 --duration 2.0 --aud_sample_rate 48000")
+# Retrieval at the reference recipe (root video_retrieval.py's defaults:
+# 32 frames at 112 px, 10 clips a video, batch 32, max pool) with run 2's
+# heads.
+RETRIEVAL_ARGS = ("--dataset ucf101 --fold 1 --clip_len 32 --batch_size 32 "
+                  "--pool_op max --workers 8 --headcount 10 "
+                  "--num_clusters 309")
+# The card's neighbour lists against an fp64 CPU solve on the same
+# features: both solve in fp64, so only a tie closer than fp64's rounding
+# could order two neighbours differently.
+KNN_MIN_SHARE = 0.99
+# Finetuning at the reference recipe (root finetune_video.py's defaults:
+# 32 frames, crop 128 with --augtype 1, batch 32, bf16): the step on a
+# resident batch, FT_REPS times, then the CLI on fold 1 of the tree, one
+# epoch, then a second resumed.
+FT_BATCH = (32, 32, 128, 128, 3)
+FT_REPS = 10
+FT_ARGS = ("--dataset ucf101 --fold 1 --clip_len 32 --batch_size 32 "
+           "--workers 8")
+# get_clusters on the exported .pth against the checkpoint: the eval
+# path's recipe cut to 96 samples. The same weights bit for bit, but two
+# runs may take cuDNN kernels that sum in another order: of max |logit|.
+PTH_SAMPLES = 96
+PTH_DUMP_RTOL = 1e-5
+# cluster_vis: the main path's dataset flags (480 samples, K = 309).
+CLUSTER_VIS_ARGS = (
+    "--ds_name synthetic --num_data_samples 480 --mlp_dim 309 "
+    "--num_frames 30 --train_crop_size 112 --aud_spec_type 2 "
+    "--aud_sample_rate 48000 --z_normalize false --seed 31")
 # The card's fp32 logits (cuDNN, TF32 off) against the CPU's on the same
 # samples and weights: the same products summed in another order through
 # 18 layers; of max |logit| over the heads.
@@ -755,6 +806,269 @@ def eval_path(torch, device, report, dump):
     report["eval"] = {"dump_s": dump_s, "clips_per_s": n / dump_s,
                       "peak_mem_gb": peak, "cpu_rel_err": err,
                       "metrics": metrics}
+
+
+def pth_import_path(torch, device, report, dump, tmp):
+    """Phase 3g: run 2's checkpoint exported to the reference .pth layout
+    (``train/torch_export.py``) and imported back
+    (``train/torch_import.py``): the state_dict bit for bit; then
+    ``cli.get_clusters`` on the .pth and on the checkpoint give the same
+    dump."""
+    import numpy as np
+
+    from selavi_tpu_torch.cli import get_clusters
+    from selavi_tpu_torch.models.av_model import load_model
+    from selavi_tpu_torch.train import torch_export, torch_import
+    from selavi_tpu_torch.train.checkpoint import CKPT_NAME
+
+    weights = os.path.join(dump, CKPT_NAME)
+    pth = os.path.join(tmp, "reference.pth.tar")
+    t0 = time.perf_counter()
+    torch_export.main([weights, pth])
+    export_s = time.perf_counter() - t0
+    saved = torch.load(weights, map_location="cpu", weights_only=True)["model"]
+    model = load_model(headcount=10, num_classes=309, seed=1, device="cpu")
+    t0 = time.perf_counter()
+    torch_import.import_reference_checkpoint(model, pth)
+    import_s = time.perf_counter() - t0
+    state = model.state_dict()
+    exact = set(state) == set(saved) and all(
+        torch.equal(state[k], saved[k]) for k in saved)
+    del model, state
+    print(f".pth import: run 2's checkpoint exported in {export_s:.2f} s "
+          f"({os.path.getsize(pth)} bytes), imported in {import_s:.2f} s; "
+          f"state_dict bit-identical {exact} ({len(saved)} tensors)",
+          flush=True)
+    check(exact, "the imported state_dict equals the checkpoint's")
+
+    argv = EVAL_ARGS.replace("--num_data_samples 480",
+                             f"--num_data_samples {PTH_SAMPLES}").split()
+    dumps = []
+    for path in (weights, pth):
+        dumps.append(get_clusters.main(argv + [
+            "--weights_path", path, "--output_path",
+            os.path.join(tmp, "ps.pkl")]))
+    (ps_v, labels, ps_a), (rps_v, rlabels, rps_a) = dumps
+    err = max(float(np.abs(rps_v - ps_v).max() / np.abs(ps_v).max()),
+              float(np.abs(rps_a - ps_a).max() / np.abs(ps_a).max()))
+    same = (np.array_equal(rps_v, ps_v) and np.array_equal(rps_a, ps_a))
+    print(f"get_clusters CLI on the .pth against the checkpoint "
+          f"({PTH_SAMPLES} samples, fp32) on {report['card']}: labels equal "
+          f"{np.array_equal(labels, rlabels)}, max |pth - ckpt| / max |ckpt| "
+          f"{err:.3g} (tolerance {PTH_DUMP_RTOL}), bit-identical {same}",
+          flush=True)
+    check(np.array_equal(labels, rlabels) and err <= PTH_DUMP_RTOL,
+          "get_clusters gives the same dump on the .pth")
+    report["pth_import"] = {"export_s": export_s, "import_s": import_s,
+                            "dump_rel_err": err}
+
+
+def cluster_vis_path(report, dump, tmp):
+    """Phase 3h: ``cli.cluster_vis`` on run 2's checkpoint over the main
+    path's dataset: ``clusters.js`` with every sample in one cluster."""
+    from selavi_tpu_torch.cli import cluster_vis
+    from selavi_tpu_torch.train.checkpoint import CKPT_NAME
+
+    t0 = time.perf_counter()
+    payload = cluster_vis.main(CLUSTER_VIS_ARGS.split() + [
+        "--weights_path", os.path.join(dump, CKPT_NAME), "--out_dir", tmp])
+    wall = time.perf_counter() - t0
+    path = os.path.join(tmp, "clusters.js")
+    total = sum(c["size"] for c in payload)
+    print(f"cluster_vis CLI on run 2's checkpoint (head 0, host only): "
+          f"{len(payload)} clusters, {total} samples, {os.path.getsize(path)} "
+          f"bytes in {wall:.2f} s", flush=True)
+    check(total == 480 and len(payload) >= 1
+          and open(path).read().startswith("var clusters = "),
+          "clusters.js holds every sample")
+    report["cluster_vis"] = {"clusters": len(payload)}
+
+
+def make_ucf_tree(tmp):
+    """A UCF-layout tree (``scripts/make_real_media.py --layout ucf``)
+    under ``tmp``; returns its root."""
+    import subprocess
+
+    root = os.path.join(tmp, "ucf")
+    script = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "scripts", "make_real_media.py")
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, script, "--output", root]
+                   + UCF_MEDIA_ARGS.split(), check=True, timeout=600,
+                   stdout=subprocess.DEVNULL)
+    print(f"UCF-layout tree ({UCF_MEDIA_ARGS}) written in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return root
+
+
+def retrieval_path(torch, device, report, dump, ucf, tmp):
+    """Phase 3i: ``cli.video_retrieval`` at the reference recipe on the
+    UCF tree with run 2's weights: v-v (the pooled truncated tower), a-v
+    (512-d GAP features of both towers, written to the feature cache) and
+    a-v again from the cache; the card's kNN lists against an fp64 CPU
+    solve on the v-v features."""
+    import pickle
+
+    import numpy as np
+
+    from selavi_tpu_torch.cli import video_retrieval
+    from selavi_tpu_torch.eval.retrieval import nearest_neighbors
+    from selavi_tpu_torch.train.checkpoint import CKPT_NAME
+
+    base = RETRIEVAL_ARGS.split() + [
+        "--root_dir", os.path.join(ucf, "videos"), "--data_path",
+        os.path.join(tmp, "meta"), "--weights_path",
+        os.path.join(dump, CKPT_NAME)]
+    timed = {}
+    inner = video_retrieval.compute_features
+
+    def timed_features(args, dev):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        feats = inner(args, dev)
+        torch.cuda.synchronize()
+        timed["s"] = time.perf_counter() - t0
+        timed["clips"] = sum(len(d) for d in video_retrieval.build_datasets(
+            args))
+        return feats
+
+    caches = {"v-v": os.path.join(tmp, "vv.pkl"),
+              "a-v": os.path.join(tmp, "av.pkl")}
+    results = []
+    video_retrieval.compute_features = timed_features
+    try:
+        for task in ("v-v", "a-v", "a-v"):
+            timed.clear()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            recalls = video_retrieval.main(base + [
+                "--task", task, "--feature_cache", caches[task]])
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            if timed:
+                line = (f"features {timed['s']:.2f} s for {timed['clips']} "
+                        f"clips, {timed['clips'] / timed['s']:.2f} clips/s "
+                        f"(fp32), peak memory {peak:.2f} GB")
+            else:
+                line = "features from the cache"
+            print(f"video_retrieval CLI {task} on {report['card']}: {line}; "
+                  f"CLI {wall:.2f} s; R@k {json.dumps(recalls)}", flush=True)
+            check(all(math.isfinite(v) and 0 <= v <= 100
+                      for v in recalls.values()), f"{task}: recalls")
+            results.append((task, recalls, dict(timed), peak))
+    finally:
+        video_retrieval.compute_features = inner
+    check(not results[2][2] and results[2][1] == results[1][1],
+          "a-v from the feature cache gives the same recalls")
+
+    with open(caches["v-v"], "rb") as f:
+        feats = pickle.load(f)
+    train, val = feats["train"][0], feats["val"][0]
+    k = min(50, len(train))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = nearest_neighbors(train, val, k, device)
+    knn_s = time.perf_counter() - t0
+    cpu = nearest_neighbors(train, val, k, "cpu")
+    share = float((card == cpu).all(axis=1).mean())
+    print(f"kNN of the v-v features ({len(val)} queries, {len(train)} train "
+          f"videos, {train.shape[1]}-d, k {k}) on {report['card']}: "
+          f"{knn_s * 1e3:.2f} ms (fp64, transfers included); neighbour lists "
+          f"equal to the fp64 CPU solve: {share:.4f}", flush=True)
+    check(share >= KNN_MIN_SHARE, "the card's kNN lists agree with the CPU's")
+    report["retrieval"] = {
+        task: {"recalls": rec, "feature_s": t.get("s"),
+               "clips_per_s": t["clips"] / t["s"] if t else None,
+               "peak_mem_gb": peak}
+        for task, rec, t, peak in results[:2]}
+    report["retrieval"]["knn_share_equal"] = share
+
+
+def finetune_path(torch, device, report, dump, ucf, tmp):
+    """Phase 3j: the finetune train step (bf16) and eval step on a resident
+    batch at the reference recipe, from run 2's tower; then
+    ``cli.finetune_video --dataset ucf101`` on fold 1 of the tree, one
+    epoch, and the same command with ``--epochs 2 --resume true``, which
+    must start at epoch 1."""
+    from selavi_tpu_torch.cli import finetune_video
+    from selavi_tpu_torch.eval import finetune as ft
+    from selavi_tpu_torch.eval import finetune_runner
+    from selavi_tpu_torch.train.checkpoint import CKPT_NAME
+
+    weights = os.path.join(dump, CKPT_NAME)
+    cfg = ft.FinetuneConfig(num_classes=ft.NUM_CLASSES["ucf101"])
+    model = ft.FinetuneModel(cfg.num_classes, generator=torch.Generator()
+                             .manual_seed(0)).to(device)
+    finetune_runner.load_pretrained_tower(model, weights)
+    opt = ft.make_finetune_optimizer(cfg, model)
+    ft.set_finetune_lr(opt, ft.lr_factor_table(cfg), 0, 1)
+    train_step, _, eval_step = ft.make_finetune_steps(model, opt,
+                                                      torch.bfloat16)
+    g = torch.Generator(device=device).manual_seed(0)
+    video = torch.randint(0, 256, FT_BATCH, dtype=torch.uint8, generator=g,
+                          device=device)
+    labels = torch.randint(0, cfg.num_classes, FT_BATCH[:1], generator=g,
+                           device=device)
+    for _ in range(2):  # warm up
+        train_step(video, labels, g)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = [train_step(video, labels, g)[0] for _ in range(FT_REPS)]
+    torch.cuda.synchronize()
+    train_s = (time.perf_counter() - t0) / FT_REPS
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    eval_step(video, labels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(FT_REPS):
+        logits, eval_loss = eval_step(video, labels)
+    torch.cuda.synchronize()
+    eval_s = (time.perf_counter() - t0) / FT_REPS
+    losses = [float(x) for x in losses]
+    print(f"finetune train step on {report['card']} (batch {FT_BATCH[0]} of "
+          f"{FT_BATCH[1]}x{FT_BATCH[2]}x{FT_BATCH[3]}, bf16, run 2's tower): "
+          f"{FT_BATCH[0] / train_s:.2f} clips/s ({train_s * 1e3:.1f} ms), "
+          f"peak memory {peak:.2f} GB, losses {losses[0]:.4f} .. {losses[-1]:.4f}; "
+          f"eval step {FT_BATCH[0] / eval_s:.2f} clips/s "
+          f"({eval_s * 1e3:.1f} ms)", flush=True)
+    check(all(math.isfinite(x) for x in losses)
+          and math.isfinite(float(eval_loss))
+          and tuple(logits.shape) == (FT_BATCH[0], cfg.num_classes),
+          "finetune: finite losses and logits")
+    del model, opt, video
+
+    out = os.path.join(tmp, "finetune")
+    argv = FT_ARGS.split() + [
+        "--root_dir", os.path.join(ucf, "videos"), "--data_path",
+        os.path.join(tmp, "meta"), "--weights_path", weights,
+        "--output_dir", out]
+    ckpt = os.path.join(out, "checkpoints", "checkpoint_fold1.pth")
+    walls, steps = [], []
+    try:
+        for extra in (["--epochs", "1"], ["--epochs", "2", "--resume",
+                                           "true"]):
+            t0 = time.perf_counter()
+            result = finetune_video.main(argv + extra)
+            walls.append(time.perf_counter() - t0)
+            saved = torch.load(ckpt, map_location="cpu", weights_only=True)
+            steps.append((int(saved["epoch"]), int(saved["step"])))
+            check(all(math.isfinite(v) for v in result["acc1"]
+                      + result["acc5"]), "finetune CLI: finite accuracies")
+    finally:
+        _restore_process_state()
+    with open(os.path.join(out, "train.log")) as f:
+        resumed = "resumed finetune fold 1 at epoch 1" in f.read()
+    print(f"finetune CLI (--dataset ucf101 --fold 1) on {report['card']}: "
+          f"--epochs 1 {walls[0]:.1f} s, then --epochs 2 --resume true "
+          f"{walls[1]:.1f} s; (epoch, step) in the checkpoint {steps}; "
+          f"resumed at epoch 1 {resumed}", flush=True)
+    check(resumed and steps[0][0] == 1 and steps[1] == (2, 2 * steps[0][1]),
+          "the resumed run trains epoch 1 only")
+    report["finetune"] = {"train_clips_per_s": FT_BATCH[0] / train_s,
+                          "eval_clips_per_s": FT_BATCH[0] / eval_s,
+                          "peak_mem_gb": peak, "cli_s": walls}
 
 
 def sk_cache_path(torch, sf, device, report, tmp):
@@ -1531,6 +1845,25 @@ def main() -> int:
     try:
         trainer = cli_path(torch, sf, device, report, dump)
         eval_path(torch, device, report, dump)
+        # the rest of the evaluation suite on run 2's checkpoint; none of
+        # it launches a hand kernel
+        sf.reset_launches()
+        conv.reset_launches()
+        t_suite = time.perf_counter()
+        suite = tempfile.mkdtemp(prefix="chip_smoke_eval_suite_")
+        try:
+            pth_import_path(torch, device, report, dump, suite)
+            cluster_vis_path(report, dump, suite)
+            ucf = make_ucf_tree(suite)
+            retrieval_path(torch, device, report, dump, ucf, suite)
+            finetune_path(torch, device, report, dump, ucf, suite)
+        finally:
+            shutil.rmtree(suite, ignore_errors=True)
+        suite_launches = sf.launches + sum(conv.launches.values())
+        print(f"evaluation suite (.pth import, cluster_vis, retrieval, "
+              f"finetuning): {time.perf_counter() - t_suite:.1f} s, hand "
+              f"kernel launches {suite_launches}", flush=True)
+        check(suite_launches == 0, "the evaluation suite runs no hand kernel")
     finally:
         _restore_process_state()
         shutil.rmtree(dump, ignore_errors=True)

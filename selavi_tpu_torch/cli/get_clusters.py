@@ -5,9 +5,12 @@ dump ``[PS_v_heads, labels, PS_a_heads]``.
     python -m selavi_tpu_torch.cli.get_clusters --ds_name vggsound ... \
         --weights_path runs/x/checkpoint.pth --output_path ps.pkl
 
-``--weights_path`` takes a port ``checkpoint.pth`` or ``ckp-*.pth``, or
-``None`` for a random init. A JAX ``*.msgpack`` or a reference-layout
-``.pth`` is refused (``train/checkpoint.py::load_model_parameters``).
+``--weights_path`` takes a port ``checkpoint.pth`` or ``ckp-*.pth``; a
+reference-layout ``.pth`` or ``.pth.tar`` (the reference's own, or a JAX
+run exported by ``export_torch.py``), imported strictly into the
+architecture of the flags (``train/torch_import.py``), as root
+``get_clusters.py`` takes it; or ``None`` for a random init. A JAX
+``*.msgpack`` is refused (``train/checkpoint.py::load_model_parameters``).
 Runs on the card unless ``main`` is given ``device="cpu"``.
 """
 
@@ -32,6 +35,7 @@ from selavi_tpu_torch.models.av_model import load_model
 from selavi_tpu_torch.models.r2plus1d import VIDEO_FEATURE_DIM
 from selavi_tpu_torch.models.resnet_audio import AUDIO_ARCHS
 from selavi_tpu_torch.train import step as steps
+from selavi_tpu_torch.train import torch_import
 from selavi_tpu_torch.train.checkpoint import load_model_parameters
 
 
@@ -60,6 +64,15 @@ def parse_args(argv=None):
     return parser.parse_args(argv)
 
 
+def load_weights(model, path: str):
+    """A reference-layout ``.pth``/``.pth.tar`` through the import, any
+    other file through ``load_model_parameters``."""
+    if (path.endswith((".pth", ".pth.tar"))
+            and torch_import.read_reference_state_dict(path) is not None):
+        return torch_import.import_reference_checkpoint(model, path)
+    return load_model_parameters(model, path)
+
+
 def main(argv=None, device=None):
     """Write the dump; returns ``(ps_v, labels, ps_a)`` as numpy."""
     args = parse_args(argv)
@@ -79,7 +92,7 @@ def main(argv=None, device=None):
         audio_channels=audio_channels,
     )
     if args.weights_path != "None":  # None: random init
-        load_model_parameters(model, args.weights_path)
+        load_weights(model, args.weights_path)
     audio_cfg = audio_cfg_from_args(args)
 
     def encode_fn(video, audio):

@@ -161,7 +161,7 @@ class DataLoader:
             pcm = np.stack([e["audio_pcm"] for e in examples])
             host["audio_pcm"] = (pcm if pcm.dtype == np.int16
                                  else pcm.astype(np.float32))
-        else:
+        elif "audio" in examples[0]:  # none with decode_audio=False
             audio = np.stack([e["audio"] for e in examples])
             if audio.ndim == 3:  # [B, F, T] -> add the channel axis
                 audio = audio[..., None]

@@ -6,7 +6,9 @@
 ``(logits_v, logits_a)``, each ``[H, B, K]``, or the pooled features
 ``(feat_v [B,512], feat_a [B,D_a])`` with ``return_features=True``. Train
 or eval behaviour follows ``model.train()`` / ``model.eval()``; train-mode
-dropout draws from the ``generator`` argument.
+dropout draws from the ``generator`` argument. ``encode``,
+``encode_video``, ``encode_audio`` and ``video_feature_map`` (the pre-GAP
+map that retrieval pools) give the towers' outputs alone.
 """
 
 from __future__ import annotations
@@ -47,6 +49,20 @@ class AVModel(nn.Module):
             return feat_v, feat_a
         return (self.video_heads(feat_v, generator),
                 self.audio_heads(feat_a, generator))
+
+    def encode(self, video, audio):
+        """Pooled features of both modalities ``(feat_v, feat_a)``."""
+        return self(video, audio, return_features=True)
+
+    def encode_video(self, video):
+        return self.video_network(video)
+
+    def encode_audio(self, audio):
+        return self.audio_network(audio)
+
+    def video_feature_map(self, video):
+        """Pre-GAP video feature map ``[B, t, h, w, 512]`` in fp32."""
+        return self.video_network(video, return_map=True)
 
     def video_heads(self, feat_v, generator=None):
         """All video heads on pooled features [B, 512] -> [H, B, K]."""

@@ -4,9 +4,11 @@ AVModel.
 ``load_jax_variables(model, params, batch_stats)`` takes the flax trees as
 nested dicts of numpy arrays and fills the module strictly: every flax leaf
 must be used and every parameter and buffer of the module must be filled,
-with matching shapes, or it raises. Then both frameworks compute the same
-function. ``export_jax_variables(model)`` is its exact inverse: the same
-walk, giving ``(params, batch_stats)`` as numpy trees in the flax layout.
+with matching shapes, or it raises before anything is copied
+(``load_jax_finetune_variables`` does the same for the finetune model).
+Then both frameworks compute the same function.
+``export_jax_variables(model)`` is its exact inverse: the same walk,
+giving ``(params, batch_stats)`` as numpy trees in the flax layout.
 Layout transforms (the key walk follows
 ``selavi_tpu/train/torch_export.py``):
 
@@ -100,16 +102,19 @@ class _Writer(_Walker):
         self.used.add(tkey)
 
 
-def _walk_video(w: _Walker, has_downsample) -> None:
-    v = "video_network"
-    w.conv(f"{v}.stem_spatial.weight", v, "stem_spatial", "conv")
-    w.bn(f"{v}.stem_bn1", v, "stem_bn1", "bn")
-    w.conv(f"{v}.stem_temporal.weight", v, "stem_temporal", "conv")
-    w.bn(f"{v}.stem_bn2", v, "stem_bn2", "bn")
+def _walk_video(w: _Walker, has_downsample, tprefix: str = "video_network",
+                fpath: str = "video_network") -> None:
+    """The R(2+1)D tower under port module ``tprefix`` and flax path
+    ``fpath`` (``base`` in the finetune model)."""
+    v = fpath
+    w.conv(f"{tprefix}.stem_spatial.weight", v, "stem_spatial", "conv")
+    w.bn(f"{tprefix}.stem_bn1", v, "stem_bn1", "bn")
+    w.conv(f"{tprefix}.stem_temporal.weight", v, "stem_temporal", "conv")
+    w.bn(f"{tprefix}.stem_bn2", v, "stem_bn2", "bn")
     for stage in range(1, 5):
         for block in range(2):
             name = f"layer{stage}_block{block}"
-            t = f"{v}.{name}"
+            t = f"{tprefix}.{name}"
             for ci in ("conv1", "conv2"):
                 w.conv(f"{t}.{ci}.spatial.weight", v, name, ci, "spatial",
                        "conv")
@@ -177,13 +182,35 @@ def jax_audio_channels(params: dict) -> int:
     return int(np.shape(kernel)[-2])  # [kh, kw, I, O]
 
 
+def _walk_finetune(w: _Walker, model, state) -> None:
+    """``FinetuneModel``: flax ``base`` (the tower), ``final_bn`` (flax
+    BatchNorm: scale/bias, mean/var) and ``classifier`` (Dense kernel
+    ``[I, O]`` -> Linear weight ``[O, I]``)."""
+    _walk_video(w, lambda key: key in state, "base", "base")
+    if model.final_bn is not None:
+        w.bn("final_bn", "final_bn")
+    w.conv("classifier.weight", "classifier")
+    w.leaf("classifier.bias", "params", "classifier", "bias")
+
+
 def load_jax_variables(model, params: dict, batch_stats: dict) -> None:
     """Fill ``model`` (an ``AVModel``) from flax ``params``/``batch_stats``
     trees of numpy arrays. Raises on a missing or extra key or a shape
     mismatch on either side."""
+    _load(model, _walk, params, batch_stats)
+
+
+def load_jax_finetune_variables(model, params: dict,
+                                batch_stats: dict) -> None:
+    """``load_jax_variables`` for a ``FinetuneModel`` from JAX's
+    ``{"base", "final_bn", "classifier"}`` trees."""
+    _load(model, _walk_finetune, params, batch_stats)
+
+
+def _load(model, walk, params: dict, batch_stats: dict) -> None:
     state = model.state_dict()
     w = _Reader(params, batch_stats or {})
-    _walk(w, model, state)
+    walk(w, model, state)
     extra = w.unused()
     if extra:
         raise KeyError(f"flax leaves with no place in the model: {extra}")
@@ -191,14 +218,14 @@ def load_jax_variables(model, params: dict, batch_stats: dict) -> None:
     unexpected = sorted(set(w.out) - set(state))
     if missing or unexpected:
         raise KeyError(f"missing {missing}, unexpected {unexpected}")
+    shapes = [f"{key}: model {tuple(state[key].shape)} vs flax {value.shape}"
+              for key, value in w.out.items()
+              if tuple(state[key].shape) != value.shape]
+    if shapes:
+        raise ValueError(f"shapes differ: {shapes}")
     with torch.no_grad():
         for key, value in w.out.items():
-            target = state[key]
-            if tuple(target.shape) != value.shape:
-                raise ValueError(
-                    f"{key}: model {tuple(target.shape)} vs flax {value.shape}"
-                )
-            target.copy_(torch.tensor(value))
+            state[key].copy_(torch.tensor(value))
 
 
 def export_jax_variables(model) -> Tuple[dict, dict]:

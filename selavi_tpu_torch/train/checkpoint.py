@@ -172,21 +172,22 @@ def restore_checkpoint(
     return sl_state, int(payload["epoch"]), int(payload["step"])
 
 
-# The ROADMAP item that would import the weights of a JAX run into the port.
-REFERENCE_IMPORT_ITEM = "10e (import of reference .pth files)"
+# Where the weights of a JAX run (or the reference's own) enter the port.
+REFERENCE_IMPORT_ROUTE = (
+    "export_torch.py writes them in the reference .pth layout, which "
+    "cli.get_clusters --weights_path imports (train/torch_import.py)")
 
 
 def load_model_parameters(model: torch.nn.Module, ckpt_path: str):
     """Eval-tool loader: the model's weights and BN statistics only, from a
     port ``checkpoint.pth`` or ``ckp-*.pth``. A JAX ``*.msgpack`` or a
     reference-layout ``.pth`` (no ``model`` entry holding the model's keys)
-    raises ``NotImplementedError`` before any tensor is copied."""
+    raises ``NotImplementedError`` before any tensor is copied; the latter
+    goes through ``train/torch_import.py`` instead."""
     refusal = (
         f"{ckpt_path} holds no port state_dict of this model's "
         f"architecture (a JAX checkpoint or a reference-layout .pth?). The "
-        f"weights of a JAX run move through export_torch.py, which writes "
-        f"them in the reference .pth layout, whose import into the port is "
-        f"ROADMAP Queue 1 item {REFERENCE_IMPORT_ITEM}")
+        f"weights of a JAX run move as follows: {REFERENCE_IMPORT_ROUTE}")
     if ckpt_path.endswith(".msgpack"):
         raise NotImplementedError(refusal)
     payload = torch.load(ckpt_path, map_location="cpu", weights_only=True)

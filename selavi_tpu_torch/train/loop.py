@@ -58,7 +58,7 @@ from selavi_tpu_torch.selflabel.schedule import (
 from selavi_tpu_torch.train import step as steps
 from selavi_tpu_torch.train.checkpoint import (
     CKPT_NAME,
-    REFERENCE_IMPORT_ITEM,
+    REFERENCE_IMPORT_ROUTE,
     restore_checkpoint,
     save_checkpoint,
     wait_for_pending_checkpoint,
@@ -358,9 +358,7 @@ class Trainer:
                 f"{jax_checkpoint} is a JAX checkpoint, and the port cannot "
                 f"resume from it: cross-framework resume is out of scope "
                 f"(docs/DEVIATIONS.md item 8). Its weights alone can move: "
-                f"export_torch.py writes them in the reference .pth layout, "
-                f"whose import into the port is ROADMAP Queue 1 item "
-                f"{REFERENCE_IMPORT_ITEM}")
+                f"{REFERENCE_IMPORT_ROUTE}")
         start_epoch = self.resume()
         try:
             if start_epoch == 0:

@@ -12,7 +12,8 @@ CPU:
   report (1e-10);
 * the CLI chain ``cli.main`` -> ``cli.get_clusters`` ->
   ``cli.clustering_metrics`` on the CPU, the refusal of a JAX checkpoint
-  and of a reference-layout ``.pth``, and ``cli.plot_distributions``.
+  (a reference-layout ``.pth`` is imported: ``tests/
+  test_torch_pth_import.py``), and ``cli.plot_distributions``.
 """
 
 import logging
@@ -61,7 +62,6 @@ from selavi_tpu_torch.models.av_model import load_model
 from selavi_tpu_torch.models.convert import load_jax_variables
 from selavi_tpu_torch.parallel import dist
 from selavi_tpu_torch.train import step as steps
-from selavi_tpu_torch.train import torch_export
 from selavi_tpu_torch.train.checkpoint import CKPT_NAME
 
 torch.set_num_threads(1)
@@ -303,17 +303,16 @@ def test_cli_chain_dumps_and_reports(trained, tmp_path, capsys):
     assert not np.allclose(random_v, ps_v)
 
 
-@pytest.mark.parametrize("kind", ["jax_msgpack", "reference_pth"])
+@pytest.mark.parametrize("kind", ["jax_msgpack"])
 def test_get_clusters_refuses_foreign_checkpoints(trained, tmp_path, kind):
-    if kind == "jax_msgpack":
-        weights = tmp_path / "checkpoint.msgpack"
-        weights.write_bytes(b"\x80\x04")
-    else:
-        weights = tmp_path / "reference.pth.tar"
-        torch_export.main([str(trained / CKPT_NAME), str(weights)])
+    """A JAX checkpoint is refused; a reference-layout .pth is imported
+    (tests/test_torch_pth_import.py)."""
+    weights = tmp_path / "checkpoint.msgpack"
+    weights.write_bytes(b"\x80\x04")
     out = tmp_path / "ps.pkl"
     with pytest.raises(NotImplementedError,
-                       match=r"export_torch\.py.*ROADMAP Queue 1 item 10e"):
+                       match=r"export_torch\.py.*reference \.pth layout.*"
+                             r"cli\.get_clusters --weights_path"):
         get_clusters.main(EVAL.split() + ["--weights_path", str(weights),
                                           "--output_path", str(out)],
                           device="cpu")
