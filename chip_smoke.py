@@ -77,7 +77,20 @@ with the launch counts set to 0 just before and read just after each:
 - the conv probe: ``selavi_tpu_torch.experiments.conv3x3``'s ``check()``
   and ``bench()``, which run the conv3x3 forward, dgrad and wgrad kernels
   and time them beside cuDNN at R(2+1)D layer1's shape (all three bf16
-  kernels there on their wgmma routes; the per-route counts show it).
+  kernels there on their wgmma routes; the per-route counts show it);
+- data parallelism, after the train timings: ``python -m
+  torch.distributed.run --standalone --nproc_per_node 1 -m
+  selavi_tpu_torch.cli.main`` on the main path's recipe (one epoch, one
+  SK step with matching, traced), whose group must be NCCL at world 1,
+  whose trace must show DDP's forward at every step, the global
+  BatchNorm, NCCL all-reduces and one fused SK launch an SK iteration,
+  whose checkpoint must hold the inner module's keys and resume in the
+  plain Trainer, and whose step-0 loss and SK labels are held against run
+  1's; then, in this process under a 1-rank NCCL group, the global
+  BatchNorm against cuDNN's on one recipe batch (logits and input
+  gradient, fp32 and bf16), and the DDP step's all-reduces (profiler) and
+  clips/s beside the plain step's. One card cannot hold two ranks of an
+  NCCL group, so world 1 is what the card drives.
 Before the packed path it holds the card's audio frontend against the
 host's numpy spectrogram (a batch of 24 clips of 48000 samples, 257
 filters, z-normalized) and the card's YUV decode against its CPU result
@@ -110,6 +123,7 @@ import json
 import logging
 import math
 import os
+import re
 import shutil
 import signal
 import sys
@@ -244,6 +258,30 @@ CONV_RAGGED_SHAPES = {
     (1, 6, 10, 16, 136): ("wgmma", "wmma", "wgmma"),
     (1, 5, 7, 3, 5): ("wmma", "wmma", "wmma"),
 }
+# The distributed phase: torchrun's CLI run on the main path's recipe (one
+# epoch), its limit in seconds, and the same command without torchrun. Both
+# skip the BN warmup: the global BatchNorm's statistics are fp32 sums in
+# another order than cuDNN's, and the warmup's running statistics would
+# differ in their last bits, which re-draws the SK step's labels at the
+# fresh heads (480 samples over 309 clusters are decided by near-ties:
+# with the warmup, 2.5% of the labels agreed on an H100). Without it the
+# SK step's features are the same bits on both routes, so its labels and
+# launches must be equal; the step-0 loss (ln 309 = 5.73 at the fresh
+# heads) goes through bf16 train-mode BatchNorms rounded apart (3e-4
+# apart on an H100).
+DIST_ARGS = "--bn_warmup_batches 0"
+DIST_TIMEOUT_S = 600
+DIST_LOSS_ATOL = 0.01
+# Global BatchNorm vs cuDNN's on one recipe batch (train-mode logits and
+# the input video's gradient). Through 51 BatchNorms the input gradient
+# is ill-conditioned: on an H100 cuDNN's own fp32 gradient is 5% of its
+# largest value away from its fp64 one, and its bf16 gradient 99%. So
+# each route is held to cuDNN's route in fp64: the global route's
+# distance to it at most BN_ROUTE_RATIO times cuDNN's own in the same
+# dtype, plus BN_ROUTE_FLOOR of the largest value (fp32 rounding of the
+# logits).
+BN_ROUTE_RATIO = 2.0
+BN_ROUTE_FLOOR = 1e-5
 # (name in the kernels line, the TPU kernel it replaces: file:line)
 CONV_KERNELS = (
     ("conv3x3", "experiments/pallas_conv3x3.py:94"),
@@ -1781,6 +1819,262 @@ def conv_probe_path(torch, conv, measure, device, report):
     report["conv_bench"] = bench
 
 
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _train_forward(torch, model, batch, compute_dtype, seed=0):
+    """One train-mode forward of the recipe's batch and the backward of a
+    fixed random projection of its logits; returns (logits, the input
+    video's gradient)."""
+    from selavi_tpu_torch.ops.preprocess import normalize_video
+    from selavi_tpu_torch.train.step import autocast, prepare_audio
+
+    dtype = next(model.parameters()).dtype
+    video = normalize_video(batch["video"], dtype).requires_grad_(True)
+    audio = prepare_audio(batch["audio"], dtype)
+    gen = torch.Generator(device=video.device).manual_seed(seed)
+    model.train()
+    with autocast(video.device, compute_dtype):
+        logits = torch.cat(model(video, audio, generator=gen)).float()
+    proj = torch.randn(logits.shape, generator=gen, device=logits.device)
+    (logits * proj).sum().backward()
+    return logits.detach(), video.grad.float()
+
+
+def distributed_path(torch, sf, device, report, tmp):
+    """Phase 9: data parallelism on the card. ``torchrun --standalone
+    --nproc_per_node 1`` runs the pretraining CLI at the recipe (one epoch,
+    one SK step with matching at iteration 0, traced): its process group
+    is NCCL at world 1, its model DDP with the global BatchNorm, its SK
+    step gathers the features and launches the fused SK kernel once an
+    iteration; its checkpoint holds the inner module's keys and a plain
+    Trainer resumes from it. The same command without torchrun, in this
+    process, is its reference: both skip the BN warmup (``DIST_ARGS``), so
+    that the SK step reads the same bits in both, and its labels and
+    launches must be equal and its step-0 loss within ``DIST_LOSS_ATOL``.
+    Then, in this process with a 1-rank NCCL group: the global-BatchNorm
+    route against cuDNN's on one batch of the recipe (outputs and input
+    gradient, fp32 and bf16), the NCCL all-reduces of one DDP step from
+    the profiler, and the DDP step's clips/s beside the plain step's."""
+    import subprocess
+
+    import torch.distributed as tdist
+
+    from selavi_tpu_torch.cli import main as cli_main
+    from selavi_tpu_torch.config import parse_arguments
+    from selavi_tpu_torch.data.factory import build_dataset
+    from selavi_tpu_torch.data.loader import DataLoader, decode_wire_batch
+    from selavi_tpu_torch.models.av_model import load_model
+    from selavi_tpu_torch.parallel import dist
+    from selavi_tpu_torch.train import checkpoint as ckpt
+    from selavi_tpu_torch.train import loop
+    from selavi_tpu_torch.utils import profiling
+
+    card = report["card"]
+    dump = os.path.join(tmp, "run")
+    argv = (MAIN_ARGS + " " + DIST_ARGS).split() + [
+        "--trace_profile", "true", "--dump_path", dump]
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    for key in dist.TORCHRUN_VARS:
+        env.pop(key, None)
+    out_path = os.path.join(tmp, "torchrun.out")
+    t0 = time.perf_counter()
+    with open(out_path, "w") as out:
+        # its own process group, so that a timeout stops torchrun's worker
+        # with it
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc_per_node", "1", "-m", "selavi_tpu_torch.cli.main",
+             *argv], cwd=root, env=env, stdout=out,
+            stderr=subprocess.STDOUT, start_new_session=True)
+        try:
+            proc.wait(timeout=DIST_TIMEOUT_S)
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+    wall = time.perf_counter() - t0
+    with open(out_path) as f:
+        output = f.read()
+    if proc.returncode != 0:
+        print(output[-8000:], file=sys.stderr, flush=True)
+    check(proc.returncode == 0, f"the torchrun CLI run exits 0 (got "
+          f"{proc.returncode})")
+    with open(os.path.join(dump, "train.log")) as f:
+        log = f.read()
+    check("data parallel: rank 0 of 1, backend nccl, DistributedDataParallel "
+          "with global BatchNorm" in log,
+          "the torchrun run is rank 0 of 1 on NCCL under DDP")
+    iters = [int(m) for m in re.findall(r"head \d+: SK cost .*?, (\d+) iters",
+                                        log)]
+    gather = [float(m) for m in re.findall(r"SK split: .*gather_s ([\d.]+)",
+                                           log)]
+    loss0 = float(re.search(r"Epoch: \[0\]\[0\].*?Loss ([\d.]+)",
+                            log).group(1))
+    check(len(iters) == 10 and len(gather) == 1,
+          "one SK step of 10 heads, its gather timed")
+
+    trace_path = os.path.join(dump, "profile", profiling.TRACE_NAME)
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events
+               if e.get("ph") == "X" and e.get("cat") == "kernel"]
+    # host events: the device's copies of annotations are "gpu_*"
+    host = [e["name"] for e in events if e.get("ph") == "X"
+            and not e.get("cat", "").startswith("gpu")]
+    sk_launches = sum("sk_iteration" in k for k in kernels)
+    nccl_kernels = sum("nccl" in k.lower() for k in kernels)
+    nccl_allreduces = host.count("nccl:all_reduce")
+    ddp_forwards = host.count("DistributedDataParallel.forward")
+    gbn = sum("GlobalBatchNorm" in n for n in host)
+    steps = 480 // 24
+    print(f"torchrun CLI run (--standalone --nproc_per_node 1, NCCL, world 1, "
+          f"--trace_profile true) on {card}: {wall:.1f} s, exit "
+          f"{proc.returncode}; traced epoch: DDP forwards {ddp_forwards}, "
+          f"GlobalBatchNorm host events {gbn}, nccl:all_reduce host events "
+          f"{nccl_allreduces} (NCCL kernels {nccl_kernels}: one rank copies "
+          f"nothing), fused SK launches {sk_launches} (the SK step's "
+          f"iterations {sum(iters)}; run 1 {report['launches']}); SK gather "
+          f"{gather[0]:.4f} s", flush=True)
+    check(ddp_forwards == steps, f"{steps} steps through DDP's forward")
+    check(gbn > 0, "the global-BatchNorm route ran")
+    check(nccl_allreduces > 0, "NCCL all-reduces ran")
+    check(sk_launches == sum(iters) > 0,
+          "one fused SK launch per SK iteration in the torchrun run")
+
+    # the same command without torchrun: no group, cuDNN's BatchNorm
+    sf.reset_launches()
+    code, plain = _run_cli(
+        cli_main, (MAIN_ARGS + " " + DIST_ARGS).split() + [
+            "--dump_path", os.path.join(tmp, "plain")], loop.Trainer)
+    _restore_process_state()
+    plain_launches = sf.launches
+    plain_loss0 = next(h["loss"] for h in plain.history if "iter" in h)
+    plain_labels = plain.sl_state.selflabels.copy()
+    check(code is None and type(plain.net).__name__ == "AVModel",
+          "the plain run trains without DDP")
+    del plain
+
+    # the checkpoint is a one-GPU run's, and the plain Trainer resumes it
+    path = os.path.join(dump, ckpt.CKPT_NAME)
+    saved = torch.load(path, map_location="cpu", weights_only=True)
+    check(not any(k.startswith("module.") for k in saved["model"]),
+          "the checkpoint holds the inner module's keys")
+    args = parse_arguments().parse_args(argv)
+    resumed = loop.Trainer(args, build_dataset(args))
+    start = resumed.resume()
+    same = all(torch.equal(v.cpu(), saved["model"][k])
+               for k, v in resumed.model.state_dict().items())
+    labels = saved["selflabels"].numpy()
+    agree = float((labels == plain_labels).mean())
+    print(f"torchrun checkpoint: epoch {saved['epoch']}, no 'module.' keys, "
+          f"plain Trainer resumed at epoch {start}, model equal {same}; "
+          f"against the run without torchrun: step-0 loss {loss0:.4f} vs "
+          f"{plain_loss0:.4f}, SK labels equal for {agree * 100:.2f}% of "
+          f"(sample, head), fused SK launches {sk_launches} vs "
+          f"{plain_launches}", flush=True)
+    check(start == 1 and same, "the plain Trainer resumes the checkpoint")
+    check(agree == 1.0 and sk_launches == plain_launches,
+          "the torchrun run's SK labels and launches equal the plain run's")
+    check(abs(loss0 - plain_loss0) <= DIST_LOSS_ATOL,
+          f"step-0 loss within {DIST_LOSS_ATOL} of the plain run's")
+    del resumed
+
+    # In this process: the global-BatchNorm route against cuDNN's, on one
+    # batch of the recipe, then the DDP step under a 1-rank NCCL group.
+    dataset = build_dataset(args)
+    batch = decode_wire_batch(next(iter(DataLoader(
+        dataset, batch_size=24, shuffle=False, drop_last=True,
+        device=device))))
+
+    def forward(dtype, compute_dtype):
+        model = load_model(headcount=10, num_classes=309, seed=3,
+                           device=device).to(dtype)
+        out = _train_forward(torch, model, batch, compute_dtype)
+        del model
+        torch.cuda.empty_cache()
+        return out
+
+    # cuDNN's route in fp64: the reference that both routes are held to
+    torch.cuda.reset_peak_memory_stats()
+    ref_out, ref_grad = (t.float() for t in forward(torch.float64,
+                                                    torch.float64))
+    ref_peak = torch.cuda.max_memory_allocated() / 1e9
+    routes = {("cudnn", name): forward(torch.float32, cdtype)
+              for name, cdtype in (("fp32", torch.float32),
+                                   ("bf16", torch.bfloat16))}
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                      MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()))
+    try:
+        dist.init_distributed_mode(None, device)
+        check(tdist.get_backend() == "nccl", "NCCL group in-process")
+        for name, cdtype in (("fp32", torch.float32),
+                             ("bf16", torch.bfloat16)):
+            routes[("global", name)] = forward(torch.float32, cdtype)
+        _ddp_step(torch, loop.Trainer(args, dataset), report)
+    finally:
+        if tdist.is_initialized():
+            tdist.destroy_process_group()
+        for key in dist.TORCHRUN_VARS:
+            os.environ.pop(key, None)
+
+    def err(a, b):
+        return float((a - b).abs().max())
+
+    scales = float(ref_out.abs().max()), float(ref_grad.abs().max())
+    for name in ("fp32", "bf16"):
+        (lo, go), (lg, gg) = routes[("cudnn", name)], routes[("global", name)]
+        report[f"bn_route_{name}"] = (err(lo, lg), err(go, gg))
+        print(f"global BatchNorm vs cuDNN, one recipe batch in {name} on "
+              f"{card}: max |d logits| {err(lo, lg):.3e}, max |d input "
+              f"grad| {err(go, gg):.3e}; against cuDNN's fp64 (logits "
+              f"{scales[0]:.3e}, input grad {scales[1]:.3e} at most; peak "
+              f"{ref_peak:.2f} GB): global {err(lg, ref_out):.3e} / "
+              f"{err(gg, ref_grad):.3e}, cuDNN {err(lo, ref_out):.3e} / "
+              f"{err(go, ref_grad):.3e}", flush=True)
+        check(err(lg, ref_out) <= BN_ROUTE_RATIO * err(lo, ref_out)
+              + BN_ROUTE_FLOOR * scales[0]
+              and err(gg, ref_grad) <= BN_ROUTE_RATIO * err(go, ref_grad)
+              + BN_ROUTE_FLOOR * scales[1],
+              f"the {name} global route is as close to fp64 as cuDNN's")
+
+
+def _ddp_step(torch, trainer, report):
+    """The DDP step on a resident recipe batch: its clips/s and, from the
+    profiler, the all-reduces of one step."""
+    from selavi_tpu_torch.data.loader import decode_wire_batch
+
+    check(type(trainer.net).__name__ == "DistributedDataParallel",
+          "the in-process Trainer runs DDP")
+    time_train(torch, trainer, report, prefix="ddp_", epoch=False)
+    resident = decode_wire_batch(next(iter(trainer.loader)))
+    labels = torch.zeros(24, 10, dtype=torch.long, device=trainer.device)
+    gen = torch.Generator(device=trainer.device).manual_seed(0)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        trainer.train_step(resident, labels, gen)
+        torch.cuda.synchronize()
+    trainer.loader.close()
+    counts = {e.key: e.count for e in prof.key_averages()}
+    report["ddp_allreduces"] = counts.get("nccl:all_reduce", 0)
+    print(f"DDP step (NCCL, world 1, global BatchNorm) on {report['card']}: "
+          f"{report['ddp_train_clips_per_s']:.2f} clips/s against "
+          f"{report['train_clips_per_s']:.2f} for the plain step, peak "
+          f"{report['ddp_peak_mem_gb']:.2f} GB; one step: "
+          f"{counts.get('c10d::allreduce_', 0)} c10d::allreduce_ ops, "
+          f"{report['ddp_allreduces']} nccl:all_reduce (profiler)",
+          flush=True)
+    check(report["ddp_allreduces"] > 0,
+          "the DDP step all-reduces through NCCL")
+
+
 def _restore_process_state():
     """Put back the log and signal handlers that a CLI run installs."""
     root = logging.getLogger()
@@ -1956,6 +2250,12 @@ def main() -> int:
           f"next two, native, on 8 spawned worker processes, started in the "
           f"first), peak memory {report['peak_mem_gb']:.2f} GB in the step "
           f"and the first epoch", flush=True)
+    del trainer
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_distributed_")
+    try:
+        distributed_path(torch, sf, device, report, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
     fp32 = times[torch.float32]
     kernels = [{

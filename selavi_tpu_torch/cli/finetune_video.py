@@ -11,7 +11,10 @@ events to ``{output_dir}/tensorboard`` where tensorboardX imports.
 ``--weights_path`` takes a port ``checkpoint.pth`` or ``ckp-*.pth``.
 ``--ckpt_epoch``, ``--pretrained``, ``--test_time_cj``, ``--start_epoch``,
 ``--vid_base_arch`` and ``--aud_base_arch`` are parsed and not read, as in
-JAX. Runs on the card unless ``main`` is given ``device="cpu"``.
+JAX. Runs on the card unless ``main`` is given ``device="cpu"``. Under
+``torchrun --nproc_per_node N`` the ranks train data-parallel,
+``--batch_size`` per process; rank 0 writes the checkpoints, TensorBoard
+and ``train.log``, rank r ``train.log-{r}``.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import os
 from selavi_tpu_torch.config import bool_flag
 from selavi_tpu_torch.device import resolve_device
 from selavi_tpu_torch.eval.finetune_runner import run_folds
+from selavi_tpu_torch.parallel.dist import distributed
 from selavi_tpu_torch.utils.logger import create_logger
 
 
@@ -92,25 +96,32 @@ def parse_args(argv=None):
 def main(argv=None, device=None):
     """Run the folds; returns ``run_folds``' result dict."""
     args = parse_args(argv)
-    device = resolve_device(device)
+    with distributed(args, device) as (rank, _):
+        return _finetune(args, rank, resolve_device(device))
+
+
+def _finetune(args, rank, device):
     os.makedirs(args.output_dir, exist_ok=True)
-    create_logger(os.path.join(args.output_dir, "train.log"), rank=0)
+    create_logger(os.path.join(args.output_dir, "train.log"), rank=rank)
 
     writer = None
-    try:
-        from tensorboardX import SummaryWriter
+    if rank == 0:
+        try:
+            from tensorboardX import SummaryWriter
 
-        writer = SummaryWriter(os.path.join(args.output_dir, "tensorboard"))
-    except ImportError:
-        pass
+            writer = SummaryWriter(os.path.join(args.output_dir,
+                                                "tensorboard"))
+        except ImportError:
+            pass
     try:
         result = run_folds(args, writer=writer, device=device)
     finally:
         if writer is not None:
             writer.close()
-    print(f"{len(result['folds'])}-Fold ({args.dataset}): "
-          f"Vid Acc@1 {result['avg_acc1']:.3f}, "
-          f"Vid Acc@5 {result['avg_acc5']:.3f}")
+    if rank == 0:
+        print(f"{len(result['folds'])}-Fold ({args.dataset}): "
+              f"Vid Acc@1 {result['avg_acc1']:.3f}, "
+              f"Vid Acc@5 {result['avg_acc5']:.3f}")
     return result
 
 

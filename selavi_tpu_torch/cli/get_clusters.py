@@ -11,7 +11,9 @@ run exported by ``export_torch.py``), imported strictly into the
 architecture of the flags (``train/torch_import.py``), as root
 ``get_clusters.py`` takes it; or ``None`` for a random init. A JAX
 ``*.msgpack`` is refused (``train/checkpoint.py::load_model_parameters``).
-Runs on the card unless ``main`` is given ``device="cpu"``.
+Runs on the card unless ``main`` is given ``device="cpu"``. Under
+``torchrun --nproc_per_node N`` each rank encodes its stride of the
+dataset, ``--batch_size`` per process, and rank 0 writes the dump.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from selavi_tpu_torch.eval.get_clusters import dump_cluster_matrices
 from selavi_tpu_torch.models.av_model import load_model
 from selavi_tpu_torch.models.r2plus1d import VIDEO_FEATURE_DIM
 from selavi_tpu_torch.models.resnet_audio import AUDIO_ARCHS
+from selavi_tpu_torch.parallel.dist import distributed
 from selavi_tpu_torch.train import step as steps
 from selavi_tpu_torch.train import torch_import
 from selavi_tpu_torch.train.checkpoint import load_model_parameters
@@ -76,7 +79,11 @@ def load_weights(model, path: str):
 def main(argv=None, device=None):
     """Write the dump; returns ``(ps_v, labels, ps_a)`` as numpy."""
     args = parse_args(argv)
-    device = resolve_device(device)
+    with distributed(args, device) as (rank, world_size):
+        return _dump(args, resolve_device(device), rank, world_size)
+
+
+def _dump(args, device, rank, world_size):
     dataset = build_dataset(args, mode=args.mode, eval_mode=True)
     # eval datasets yield single clips; a dual_data checkpoint's stem takes
     # 2 channels, and encode tiles the spectrogram onto them
@@ -105,7 +112,7 @@ def main(argv=None, device=None):
 
     loader = DataLoader(dataset, batch_size=args.batch_size, shuffle=False,
                         drop_last=False, num_workers=args.workers,
-                        device=device)
+                        device=device, rank=rank, world_size=world_size)
     try:
         out = dump_cluster_matrices(
             encode_fn, head_logits_fn, decode_wire_batches(loader),
@@ -113,7 +120,8 @@ def main(argv=None, device=None):
             feat_dim_a=AUDIO_ARCHS[args.aud_base_arch][2], device=device)
     finally:
         loader.close()
-    print(f"wrote {args.output_path}")
+    if rank == 0:
+        print(f"wrote {args.output_path}")
     return out
 
 

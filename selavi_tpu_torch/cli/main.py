@@ -1,8 +1,13 @@
 """Pretraining entry point (``selavi_tpu/cli/main.py``): the JAX command
-line, run by the port's Trainer on one card.
+line, run by the port's Trainer on one card,
 
     python -m selavi_tpu_torch.cli.main --ds_name synthetic --mlp_dim 309 \
         --headcount 10 ... --dump_path runs/x
+
+or data-parallel on N cards of a host, one process each, with
+``--batch_size`` and ``--sk_agg_batch`` per process:
+
+    torchrun --nproc_per_node N -m selavi_tpu_torch.cli.main ...
 
 Running the same command again resumes from ``{dump_path}/checkpoint.pth``
 (after a preemption: at the interrupted epoch). Where tensorboardX imports,
@@ -16,7 +21,7 @@ from selavi_tpu_torch.config import parse_arguments
 from selavi_tpu_torch.data.factory import build_dataset
 from selavi_tpu_torch.device import resolve_device
 from selavi_tpu_torch.parallel.dist import (
-    init_distributed_mode,
+    distributed,
     init_memory_watchdog,
     init_signal_handler,
 )
@@ -26,12 +31,15 @@ from selavi_tpu_torch.utils.experiment import fix_random_seeds, initialize_exp
 
 def main(argv=None, device=None):
     """Train on the card, or on ``device`` when the caller names one (the
-    tests pass ``device="cpu"``). Returns the Trainer's history."""
+    tests pass ``device="cpu"``, and gloo is then the group's backend).
+    Returns the Trainer's history."""
     parser = parse_arguments()
     args = parser.parse_args(argv)
-    device = resolve_device(device)
+    with distributed(args, device) as (rank, _):
+        return _train(args, rank, resolve_device(device))
 
-    rank, _ = init_distributed_mode(args)
+
+def _train(args, rank, device):
     init_signal_handler()
     if args.max_host_mem_gb:
         init_memory_watchdog(args.max_host_mem_gb)

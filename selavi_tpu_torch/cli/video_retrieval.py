@@ -14,7 +14,10 @@ the features in a pickle that either package reads: a hit skips the
 dataset and the model, a cache of another feature kind is recomputed.
 ``--weights_path`` takes a port ``checkpoint.pth`` or ``ckp-*.pth``
 (``train/checkpoint.py::load_model_parameters``). Runs on the card unless
-``main`` is given ``device="cpu"``.
+``main`` is given ``device="cpu"``. Under ``torchrun --nproc_per_node N``
+each rank encodes its stride of each split (``--batch_size`` per
+process), every rank gathers the features, and rank 0 writes the cache
+and solves the kNN, whose recalls every rank returns.
 """
 
 from __future__ import annotations
@@ -37,6 +40,8 @@ from selavi_tpu_torch.eval.retrieval import (
     select_task_features,
 )
 from selavi_tpu_torch.models.av_model import load_model
+from selavi_tpu_torch.parallel import mesh
+from selavi_tpu_torch.parallel.dist import distributed
 from selavi_tpu_torch.train import step as steps
 from selavi_tpu_torch.train.checkpoint import load_model_parameters
 
@@ -128,7 +133,9 @@ def load_cache(args):
 
 def compute_features(args, device) -> dict:
     """``{"train", "val"[, "train_audio", "val_audio"]}``, each
-    ``(features, vid_indices, labels)`` averaged per video."""
+    ``(features, vid_indices, labels)`` averaged per video (of every
+    rank's rows under a process group)."""
+    rank, world_size, _ = mesh.world()
     need_audio = args.task != "v-v"
     train_ds, test_ds = build_datasets(args)
     audio_channels = 2 if args.dual_data else 1
@@ -154,7 +161,7 @@ def compute_features(args, device) -> dict:
     for split, ds in (("train", train_ds), ("val", test_ds)):
         loader = DataLoader(ds, batch_size=args.batch_size, shuffle=False,
                             drop_last=False, num_workers=args.workers,
-                            device=device)
+                            device=device, rank=rank, world_size=world_size)
         try:
             out = collect_features(encode_fn, decode_wire_batches(loader),
                                    joint_encode_fn=joint_encode)
@@ -171,16 +178,18 @@ def compute_features(args, device) -> dict:
 def main(argv=None, device=None):
     """Print and return the recalls ``{k: percent}``."""
     args = parse_args(argv)
-    device = resolve_device(device)
-    feats = load_cache(args)
-    if feats is None:
-        feats = compute_features(args, device)
-        if args.feature_cache:
-            # the whole dict (the *_audio entries too) and its kind
-            with open(args.feature_cache, "wb") as fh:
-                pickle.dump(dict(feats, _video_feature_kind=feature_kind(
-                    args)), fh)
-    return report(args, feats, device)
+    with distributed(args, device) as (rank, _):
+        device = resolve_device(device)
+        feats = load_cache(args)
+        if feats is None:
+            feats = compute_features(args, device)
+            if args.feature_cache and rank == 0:
+                # the whole dict (the *_audio entries too) and its kind
+                with open(args.feature_cache, "wb") as fh:
+                    pickle.dump(dict(feats, _video_feature_kind=feature_kind(
+                        args)), fh)
+        return mesh.broadcast_object(
+            report(args, feats, device) if rank == 0 else None)
 
 
 def report(args, feats: dict, device) -> dict:

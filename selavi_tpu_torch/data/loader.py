@@ -1,9 +1,14 @@
 """Batch loader: seeded per-epoch shuffle, host workers, pinned H2D.
 
-The port's counterpart of ``selavi_tpu/data/loader.py`` for one process:
-the same order (``default_rng((seed, epoch)).permutation(N)``) and the same
-per-example RNG (``default_rng((seed, epoch, index))``), so the port reads
-the same samples as the JAX package. Batches are collated to
+The port's counterpart of ``selavi_tpu/data/loader.py``: the same order
+(``default_rng((seed, epoch)).permutation(N)``) and the same per-example
+RNG (``default_rng((seed, epoch, index))``), so the port reads the same
+samples as the JAX package. With ``world_size`` > 1 each rank reads the
+strided subset ``order[rank::world_size]`` of that order, cut to a
+multiple of ``world_size`` under ``drop_last`` and wrapped up to one
+otherwise, so every rank yields the same number of batches; rank ``r``'s
+batch ``k`` is then rows ``r::world_size`` of the one-process batch ``k``
+at ``world_size`` times the batch size. Batches are collated to
 
     {"video": uint8 [B,T,H,W,3]            (or, from a yuv420 shard,
                                             "video_y" uint8 [B,T,H,W] and
@@ -12,7 +17,10 @@ the same samples as the JAX package. Batches are collated to
                                             int16 as stored, fp32 otherwise),
      "label": int64 [B], "index": int64 [B], "vid_idx": int64 [B]}
 
-and copied to the device from pinned memory with ``non_blocking``.
+(with ``world_size`` > 1 also ``"valid": bool [B]``, false on the rows
+that wrap-padding repeated, at global positions >= N, which the consumers
+that gather rows across ranks drop) and copied to the device from pinned
+memory with ``non_blocking``.
 
 Examples are rendered ``prefetch`` batches ahead of the consumer, on
 ``num_workers`` threads (``worker_mode="thread"``; numpy releases the GIL
@@ -96,7 +104,7 @@ class DataLoader:
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  drop_last: bool = True, num_workers: int = 0, seed: int = 0,
                  device="cpu", prefetch: int = 2, worker_mode: str = "thread",
-                 coalesce: bool = True):
+                 coalesce: bool = True, rank: int = 0, world_size: int = 1):
         if worker_mode not in ("thread", "process"):
             raise ValueError(f"worker_mode {worker_mode!r}: thread or "
                              f"process")
@@ -110,6 +118,8 @@ class DataLoader:
         self.prefetch = max(1, prefetch)
         self.worker_mode = worker_mode
         self.coalesce = coalesce
+        self.rank = rank
+        self.world_size = world_size
         self.epoch = 0
         self._pool = None
 
@@ -117,16 +127,34 @@ class DataLoader:
         self.epoch = epoch
 
     def __len__(self) -> int:
+        """Batches every rank yields (the same on every rank)."""
         n = len(self.dataset)
         if self.drop_last:
-            return n // self.batch_size
-        return -(-n // self.batch_size)
+            return (n // self.world_size) // self.batch_size
+        per_rank = -(-n // self.world_size)
+        return -(-per_rank // self.batch_size)
+
+    def _positions(self) -> np.ndarray:
+        """This rank's positions in the epoch's order: ``rank::world_size``
+        of it cut (``drop_last``) or wrapped to a multiple of
+        ``world_size``."""
+        n = len(self.dataset)
+        if self.drop_last:
+            total = n // self.world_size * self.world_size
+        else:
+            total = -(-n // self.world_size) * self.world_size
+        return np.arange(self.rank, total, self.world_size)
 
     def _order(self) -> np.ndarray:
         n = len(self.dataset)
-        if not self.shuffle:
-            return np.arange(n)
-        return np.random.default_rng((self.seed, self.epoch)).permutation(n)
+        order = (np.random.default_rng((self.seed, self.epoch)).permutation(n)
+                 if self.shuffle else np.arange(n))
+        if self.world_size == 1:
+            return order
+        # np.resize tiles: wrap-padding longer than N (N < world_size / 2)
+        # still gives every rank the same count
+        padded = -(-n // self.world_size) * self.world_size
+        return np.resize(order, padded)[self._positions()]
 
     def _fetch(self, i: int) -> dict:
         rng = np.random.default_rng((self.seed, self.epoch, int(i)))
@@ -148,7 +176,9 @@ class DataLoader:
             self._pool.shutdown(cancel_futures=True)
             self._pool = None
 
-    def _collate(self, examples) -> dict:
+    def _collate(self, examples, valid=None) -> dict:
+        """The batch of ``examples`` on the device; ``valid`` (bool, one
+        a row) rides along as ``"valid"`` when given."""
         host = {}
         if "video_y" in examples[0]:
             host["video_y"] = np.stack([e["video_y"] for e in examples])
@@ -168,6 +198,8 @@ class DataLoader:
             host["audio"] = audio.astype(np.float32)
         for key in ("label", "index", "vid_idx"):
             host[key] = np.asarray([e[key] for e in examples], np.int64)
+        if valid is not None:
+            host["valid"] = valid
         if self.coalesce:
             return coalesce_batch(host, self.device)
         host = {k: torch.from_numpy(v) for k, v in host.items()}
@@ -180,30 +212,47 @@ class DataLoader:
         order = self._order()
         bs = self.batch_size
         stop = len(order) - bs + 1 if self.drop_last else len(order)
-        batches = [order[s:s + bs] for s in range(0, max(stop, 0), bs)]
+        starts = range(0, max(stop, 0), bs)
+        batches = [order[s:s + bs] for s in starts]
+        # rows at global positions >= N are wrap-padding
+        valid = ([self._positions()[s:s + bs] < len(self.dataset)
+                  for s in starts] if self.world_size > 1
+                 else [None] * len(batches))
         if self.num_workers <= 0:
-            for idxs in batches:
-                yield self._collate([self._fetch(i) for i in idxs])
+            for idxs, ok in zip(batches, valid):
+                yield self._collate([self._fetch(i) for i in idxs], ok)
             return
         if self.worker_mode == "process":
             pool = self._get_pool()
-            yield from self._pipelined(batches, lambda i: pool.submit(
+            yield from self._pipelined(batches, valid, lambda i: pool.submit(
                 _process_fetch, int(i), (self.seed, self.epoch, int(i))))
             return
         with cf.ThreadPoolExecutor(self.num_workers) as pool:
             yield from self._pipelined(
-                batches, lambda i: pool.submit(self._fetch, i))
+                batches, valid, lambda i: pool.submit(self._fetch, i))
 
-    def _pipelined(self, batches, submit) -> Iterator[dict]:
+    def _pipelined(self, batches, valid, submit) -> Iterator[dict]:
         """Keep ``prefetch`` batches of examples in flight on the workers
         and collate them in order."""
         pending = collections.deque()
-        for idxs in batches:
-            pending.append([submit(i) for i in idxs])
+        for idxs, ok in zip(batches, valid):
+            pending.append(([submit(i) for i in idxs], ok))
             if len(pending) > self.prefetch:
-                yield self._collate([f.result() for f in pending.popleft()])
+                futures, ok = pending.popleft()
+                yield self._collate([f.result() for f in futures], ok)
         while pending:
-            yield self._collate([f.result() for f in pending.popleft()])
+            futures, ok = pending.popleft()
+            yield self._collate([f.result() for f in futures], ok)
+
+
+def batch_valid(batch: dict, device="cpu") -> torch.Tensor:
+    """The batch's ``valid`` rows (every row where it carries none, as a
+    one-rank loader's batch does) as a bool tensor on ``device``."""
+    valid = batch.get("valid")
+    if valid is None:
+        return torch.ones(len(batch["label"]), dtype=torch.bool,
+                          device=device)
+    return torch.as_tensor(valid).to(device, torch.bool)
 
 
 def decode_wire_batch(batch: dict) -> dict:

@@ -18,7 +18,7 @@
 * ``make_finetune_steps``: the train step (flip on the card, bf16 autocast
   on request, fp32 cross-entropy, one optimizer step) and the eval step;
 * ``evaluate``: clip loss and acc@1, video acc@1/acc@5 from the mean of
-  each video's clip logits.
+  each video's clip logits (under a process group over every rank's rows).
 """
 
 from __future__ import annotations
@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from selavi_tpu_torch.data.loader import batch_valid
 from selavi_tpu_torch.models.common import FlaxBatchNorm
 from selavi_tpu_torch.models.heads import dropout
 from selavi_tpu_torch.models.r2plus1d import VIDEO_FEATURE_DIM, R2Plus1D18
@@ -39,6 +40,7 @@ from selavi_tpu_torch.ops.preprocess import (
     augment_video_batch,
     normalize_video,
 )
+from selavi_tpu_torch.parallel import mesh
 from selavi_tpu_torch.train.step import autocast
 from selavi_tpu_torch.utils.meters import (
     AverageMeter,
@@ -56,7 +58,9 @@ class FinetuneModel(nn.Module):
     """Video tower + classifier head (the reference's Finetune_Model).
     ``forward(video [B,T,H,W,3]) -> logits [B, num_classes]``; train-mode
     dropout draws from the ``generator`` argument. The head (norm, BN,
-    classifier) runs in fp32 outside any autocast, as JAX's does."""
+    classifier) runs in fp32 outside any autocast, as JAX's does. With
+    ``shard = (rank, world)`` the dropout mask is the global batch's rows
+    ``rank::world`` (``heads.dropout``)."""
 
     def __init__(self, num_classes: int, use_dropout: bool = False,
                  use_bn: bool = False, use_l2_norm: bool = False,
@@ -73,7 +77,8 @@ class FinetuneModel(nn.Module):
             nn.init.orthogonal_(self.classifier.weight, generator=g)
             self.classifier.bias.zero_()
 
-    def forward(self, video, generator: Optional[torch.Generator] = None):
+    def forward(self, video, generator: Optional[torch.Generator] = None,
+                shard: tuple[int, int] = (0, 1)):
         x = self.base(video)  # fp32 [B, 512]
         with torch.autocast(x.device.type, enabled=False):
             x = x.to(self.classifier.weight.dtype)
@@ -82,7 +87,7 @@ class FinetuneModel(nn.Module):
             if self.final_bn is not None:
                 x = self.final_bn(x)
             if self.use_dropout and self.training:
-                x = dropout(x, DROPOUT_RATE, generator)
+                x = dropout(x, DROPOUT_RATE, generator, shard)
             return self.classifier(x)
 
 
@@ -167,8 +172,14 @@ def set_finetune_lr(optimizer: torch.optim.Optimizer, table: np.ndarray,
 
 def make_finetune_steps(model: FinetuneModel,
                         optimizer: torch.optim.Optimizer,
-                        compute_dtype: torch.dtype = torch.float32):
+                        compute_dtype: torch.dtype = torch.float32,
+                        train_model=None, shard: tuple[int, int] = (0, 1)):
     """Returns ``(train_step, train_step_on, eval_step)``.
+
+    ``train_model`` (default ``model``) runs the train steps' forward: a
+    ``DistributedDataParallel`` wrapper of ``model`` under data
+    parallelism, whose flips and dropout masks are then the global batch's
+    draws (``shard = (rank, world)``).
 
     ``train_step(video_u8, labels, generator)`` flips the uint8 clips on
     their device and calls ``train_step_on(video, labels, generator)``,
@@ -178,11 +189,12 @@ def make_finetune_steps(model: FinetuneModel,
     labels)`` normalizes and returns ``(logits, loss)`` in eval mode."""
     param = next(model.parameters())
     dtype = param.dtype
+    train_model = model if train_model is None else train_model
 
     def train_step_on(video, labels, generator=None):
         model.train()
         with autocast(video.device, compute_dtype):
-            logits = model(video, generator=generator)
+            logits = train_model(video, generator=generator, shard=shard)
         loss = F.cross_entropy(logits.float(), labels.long())
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
@@ -191,7 +203,7 @@ def make_finetune_steps(model: FinetuneModel,
 
     def train_step(video_u8, labels, generator):
         video = augment_video_batch(video_u8, generator, flip=True,
-                                    dtype=dtype)
+                                    dtype=dtype, shard=shard)
         return train_step_on(video, labels, generator)
 
     @torch.no_grad()
@@ -210,11 +222,12 @@ def evaluate(eval_step: Callable, loader, writer=None, epoch: int = 0,
              ds: str = "hmdb51") -> tuple[float, float, float]:
     """Clip-level loss, video-level acc@1/acc@5 over ``loader``'s batches
     (rows deduplicated by the batch ``index``). As in JAX, a video's score
-    is the mean of its clips' raw logits."""
+    is the mean of its clips' raw logits. Under a process group the
+    logits, labels, ``vid_idx`` and ``index`` of every rank are gathered
+    (the wrap-padding dropped) and put in ``index`` order, the order of one
+    process's loader, and the loss is the mean over the ranks."""
     losses, top1 = AverageMeter(), AverageMeter()
-    clip_logits: dict = {}
-    labels_by_vid: dict = {}
-    seen: set = set()
+    columns = []
     for batch in loader:
         labels = batch["label"].cpu().numpy()
         logits, loss = eval_step(batch["video"], batch["label"])
@@ -222,20 +235,41 @@ def evaluate(eval_step: Callable, loader, writer=None, epoch: int = 0,
         losses.update(float(loss), len(logits))
         acc1, _ = topk_accuracy(logits, labels, (1, 5))
         top1.update(acc1, len(logits))
-        vids = batch["vid_idx"].cpu().numpy()
         idxs = batch["index"].cpu().numpy() if "index" in batch else None
-        for j, vid in enumerate(vids):
-            if idxs is not None:
-                if int(idxs[j]) in seen:
-                    continue
-                seen.add(int(idxs[j]))
-            clip_logits.setdefault(int(vid), []).append(logits[j])
-            labels_by_vid[int(vid)] = int(labels[j])
+        columns.append((logits, labels, batch["vid_idx"].cpu().numpy(), idxs,
+                        batch_valid(batch)))
+    logits, labels, vids, idxs = _rows_of_every_rank(columns)
+    clip_logits: dict = {}
+    labels_by_vid: dict = {}
+    seen: set = set()
+    for j, vid in enumerate(vids):
+        if idxs is not None:
+            if int(idxs[j]) in seen:
+                continue
+            seen.add(int(idxs[j]))
+        clip_logits.setdefault(int(vid), []).append(logits[j])
+        labels_by_vid[int(vid)] = int(labels[j])
     vid_acc1, vid_acc5 = aggregate_video_accuracy(
         clip_logits, labels_by_vid, topk=(1, 5))
-    logger.info("Test: Loss %.4f ClipAcc@1 %.3f VidAcc@1 %.3f", losses.avg,
+    loss_avg = float(mesh.mean_over_ranks(torch.tensor(losses.avg)))
+    logger.info("Test: Loss %.4f ClipAcc@1 %.3f VidAcc@1 %.3f", loss_avg,
                 top1.avg, vid_acc1)
     if writer:
         writer.add_scalar(f"{ds}/val/vid_acc1/epoch", vid_acc1, epoch)
         writer.add_scalar(f"{ds}/val/vid_acc5/epoch", vid_acc5, epoch)
-    return losses.avg, float(vid_acc1), float(vid_acc5)
+    return loss_avg, float(vid_acc1), float(vid_acc5)
+
+
+def _rows_of_every_rank(columns):
+    """``(logits, labels, vid_idx, index or None)`` of the batches'
+    ``columns``; under a process group those of every rank, the rows
+    without ``valid`` dropped, in ``index`` order."""
+    logits, labels, vids, idxs, valid = zip(*columns)
+    out = [np.concatenate(c) for c in (logits, labels, vids)]
+    if mesh.world()[2] is None:
+        return (*out, None if idxs[0] is None else np.concatenate(idxs))
+    keep = torch.cat(valid)
+    out = [mesh.gather_rows(torch.from_numpy(c), keep).numpy()
+           for c in (*out, np.concatenate(idxs))]
+    order = np.argsort(out[3], kind="stable")
+    return tuple(c[order] for c in out)

@@ -6,9 +6,13 @@ folds (``selavi_tpu/eval/finetune_runner.py``).
 the optimizer's state, the optimizer steps taken and ``epoch + 1``);
 ``--resume`` continues from it, at the LR of the step it stopped at. The
 train step draws its flips and dropout masks from a generator seeded with
-the epoch, so a resumed run continues as the uninterrupted run would. One
-process (rank 0 of 1): ``WORLD_SIZE > 1`` is refused by
-``parallel/dist.py``.
+the epoch, so a resumed run continues as the uninterrupted run would.
+
+Under a process group (``parallel/dist.py``) the fold's loaders are
+rank-strided (``--batch_size`` per process), the model trains under
+``DistributedDataParallel`` with BatchNorm over the global batch and the
+global batch's flips and dropout masks, ``evaluate`` gathers every rank's
+rows, and rank 0 writes the checkpoints.
 """
 
 from __future__ import annotations
@@ -31,6 +35,8 @@ from selavi_tpu_torch.eval.finetune import (
     make_finetune_steps,
     set_finetune_lr,
 )
+from selavi_tpu_torch.parallel import mesh
+from selavi_tpu_torch.parallel.dist import sync_hosts
 from selavi_tpu_torch.utils.meters import AverageMeter, topk_accuracy
 
 logger = logging.getLogger(__name__)
@@ -154,12 +160,14 @@ def run_fold(args, fold: int, writer=None, dataset=None, dataset_test=None,
         logger.info("loading pretrained tower from %s", args.weights_path)
         load_pretrained_tower(model, args.weights_path)
 
+    rank, world_size, _ = mesh.world()
     loader = DataLoader(dataset, batch_size=args.batch_size, shuffle=True,
                         drop_last=True, num_workers=args.workers, seed=0,
-                        device=device)
+                        device=device, rank=rank, world_size=world_size)
     loader_test = DataLoader(dataset_test, batch_size=args.batch_size,
                              shuffle=False, drop_last=False,
-                             num_workers=args.workers, device=device)
+                             num_workers=args.workers, device=device,
+                             rank=rank, world_size=world_size)
     try:
         return _train_fold(args, fold, cfg, model, loader, loader_test,
                            compute_dtype, device, writer)
@@ -172,8 +180,12 @@ def _train_fold(args, fold, cfg, model, loader, loader_test, compute_dtype,
                 device, writer) -> tuple[float, float, int]:
     optimizer = make_finetune_optimizer(cfg, model)
     table = lr_factor_table(cfg)
-    train_step, _, eval_step = make_finetune_steps(model, optimizer,
-                                                   compute_dtype)
+    rank, world_size, group = mesh.world()
+    train_model = model if group is None else mesh.data_parallel(model,
+                                                                 device)
+    train_step, _, eval_step = make_finetune_steps(
+        model, optimizer, compute_dtype, train_model=train_model,
+        shard=(rank, world_size))
     bpe = len(loader)
 
     ckpt_path = None
@@ -183,7 +195,7 @@ def _train_fold(args, fold, cfg, model, loader, loader_test, compute_dtype,
         os.makedirs(ckpt_dir, exist_ok=True)
         ckpt_path = os.path.join(ckpt_dir, f"checkpoint_fold{fold}.pth")
         if getattr(args, "resume", "") and os.path.isfile(ckpt_path):
-            blob = torch.load(ckpt_path, map_location="cpu",
+            blob = torch.load(ckpt_path, map_location=device,
                               weights_only=True)
             model.load_state_dict(blob["model"])
             optimizer.load_state_dict(blob["optimizer"])
@@ -223,11 +235,13 @@ def _train_fold(args, fold, cfg, model, loader, loader_test, compute_dtype,
         if vid1 > best1:
             best1, best5, best_epoch = vid1, vid5, epoch
         if ckpt_path is not None:
-            tmp = ckpt_path + ".tmp"
-            torch.save({"model": model.state_dict(),
-                        "optimizer": optimizer.state_dict(),
-                        "step": step, "epoch": epoch + 1}, tmp)
-            os.replace(tmp, ckpt_path)
+            if rank == 0:
+                tmp = ckpt_path + ".tmp"
+                torch.save({"model": model.state_dict(),
+                            "optimizer": optimizer.state_dict(),
+                            "step": step, "epoch": epoch + 1}, tmp)
+                os.replace(tmp, ckpt_path)
+            sync_hosts()
     return best1, best5, best_epoch
 
 

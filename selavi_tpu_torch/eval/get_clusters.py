@@ -6,7 +6,9 @@ jitter) over the dataset, scatters the pooled features and the labels by
 sample index, applies every head and writes ``[[PS_v_h] * H, labels,
 [PS_a_h] * H]`` as torch tensors: the schema of the reference's
 ``clustering_metrics.py`` and of the JAX package's dumps, so each package
-reads the other's. ``evaluate_dump`` is the reference ``k_means`` report
+reads the other's. Under a process group each rank encodes its stride of
+the dataset, the features and labels are gathered on every rank and rank
+0 writes the pickle. ``evaluate_dump`` is the reference ``k_means`` report
 over such a file (``eval/clustering.py``).
 """
 
@@ -19,12 +21,14 @@ from typing import Callable, Iterator, Optional
 import numpy as np
 import torch
 
+from selavi_tpu_torch.data.loader import batch_valid
 from selavi_tpu_torch.device import DeviceLike, resolve_device
 from selavi_tpu_torch.eval.clustering import (
     best_head_labels,
     clustering_report,
     head_labels,
 )
+from selavi_tpu_torch.parallel import mesh
 
 logger = logging.getLogger(__name__)
 
@@ -44,22 +48,26 @@ def dump_cluster_matrices(
     tensors, int64 labels). ``encode_fn(video, audio) -> (feat_v,
     feat_a)`` gives eval-mode pooled features, ``head_logits_fn(feats,
     modality) -> [H, N, K]`` applies every head; the accumulators live on
-    ``device`` (the card unless the caller names another)."""
+    ``device`` (the card unless the caller names another). Under a process
+    group every rank returns the whole dump and rank 0 writes it."""
     from selavi_tpu_torch.selflabel.engine import aggregate_features
 
     device = resolve_device(device)
     labels_dev = torch.zeros(n, dtype=torch.int64, device=device)
+    rows = []  # (index, label, valid) of every batch of this rank
 
     def with_labels(batches):
         for batch in batches:
             idx = torch.as_tensor(batch["index"], dtype=torch.long).to(device)
-            labels_dev[idx] = torch.as_tensor(batch["label"]).to(
-                device, torch.int64)
+            rows.append((idx, torch.as_tensor(batch["label"]).to(
+                device, torch.int64), batch_valid(batch, device)))
             yield batch
 
     feats_v, feats_a = aggregate_features(
         encode_fn, with_labels(batch_iter), n, feat_dim, device,
         feat_dim_a=feat_dim_a)
+    idx, labels, valid = (torch.cat(c) for c in zip(*rows))
+    labels_dev[mesh.gather_rows(idx, valid)] = mesh.gather_rows(labels, valid)
     labels = labels_dev.cpu().numpy()
     ps_v = head_logits_fn(feats_v, "v").float().cpu().numpy()
     ps_a = head_logits_fn(feats_a, "a").float().cpu().numpy()
@@ -67,10 +75,12 @@ def dump_cluster_matrices(
     def wrap(a):
         return torch.from_numpy(np.array(a, copy=True))
 
-    payload = [[wrap(m) for m in ps_v], wrap(labels), [wrap(m) for m in ps_a]]
-    with open(out_path, "wb") as f:
-        pickle.dump(payload, f)
-    logger.info("dumped cluster matrices to %s", out_path)
+    if mesh.world()[0] == 0:
+        payload = [[wrap(m) for m in ps_v], wrap(labels),
+                   [wrap(m) for m in ps_a]]
+        with open(out_path, "wb") as f:
+            pickle.dump(payload, f)
+        logger.info("dumped cluster matrices to %s", out_path)
     return ps_v, labels, ps_a
 
 

@@ -5,7 +5,9 @@
   flattened channels-last, as JAX flattens ``[B, t, h, w, C]``, so the
   feature vectors and the feature caches match JAX's element for element;
 * ``collect_features`` over a split, rows deduplicated by the batch
-  ``index``; ``average_features``: per-clip L2 norm, per-video mean;
+  ``index`` (under a process group gathered from every rank first, the
+  wrap-padding dropped); ``average_features``: per-clip L2 norm,
+  per-video mean;
 * ``retrieval``: Recall@{1,5,10,20,50}, a hit being the query's class among
   its k nearest train videos. JAX asks sklearn's ``NearestNeighbors(50)``
   (exact Euclidean kNN); the card machine has no sklearn, so
@@ -23,8 +25,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from selavi_tpu_torch.data.loader import batch_valid
 from selavi_tpu_torch.device import DeviceLike, resolve_device
 from selavi_tpu_torch.ops.preprocess import normalize_video
+from selavi_tpu_torch.parallel import mesh
 from selavi_tpu_torch.train.step import autocast
 
 logger = logging.getLogger(__name__)
@@ -81,8 +85,9 @@ def collect_features(
     by the batch ``index`` where batches carry one.
     ``joint_encode_fn(video, audio) -> (feat_v, feat_a)`` encodes both
     modalities in one forward; otherwise ``encode_fn(video)`` (and
-    ``audio_encode_fn(audio)``) run separately."""
-    feats, vids, labels, afeats, indices = [], [], [], [], []
+    ``audio_encode_fn(audio)``) run separately. Under a process group
+    every rank returns the rows of every rank."""
+    feats, vids, labels, afeats, indices, valid = [], [], [], [], [], []
     for batch in batch_iter:
         audio = batch.get("audio", batch.get("audio_pcm"))
         if joint_encode_fn is not None:
@@ -95,17 +100,22 @@ def collect_features(
                 afeats.append(_host(audio_encode_fn(audio)))
         vids.append(_host(batch["vid_idx"]))
         labels.append(_host(batch["label"]))
+        valid.append(batch_valid(batch))
         if "index" in batch:
             indices.append(_host(batch["index"]))
-    out = (np.concatenate(feats), np.concatenate(vids),
-           np.concatenate(labels))
+    columns = [np.concatenate(c) for c in (feats, vids, labels, afeats,
+                                           indices) if c]
+    if mesh.world()[2] is not None:
+        keep = torch.cat(valid)
+        columns = [mesh.gather_rows(torch.from_numpy(c), keep).numpy()
+                   for c in columns]
+    out = tuple(columns[:3])
+    afeats = columns[3:3 + bool(afeats)]
     if indices:
-        _, first = np.unique(np.concatenate(indices), return_index=True)
+        _, first = np.unique(columns[-1], return_index=True)
         out = tuple(a[first] for a in out)
-        afeats = [np.concatenate(afeats)[first]] if afeats else afeats
-    if afeats:
-        return out + (np.concatenate(afeats),)
-    return out
+        afeats = [a[first] for a in afeats]
+    return out + tuple(afeats)
 
 
 def average_features(features: np.ndarray, vid_indices: np.ndarray,

@@ -6,7 +6,8 @@
 ``(logits_v, logits_a)``, each ``[H, B, K]``, or the pooled features
 ``(feat_v [B,512], feat_a [B,D_a])`` with ``return_features=True``. Train
 or eval behaviour follows ``model.train()`` / ``model.eval()``; train-mode
-dropout draws from the ``generator`` argument. ``encode``,
+dropout draws from the ``generator`` argument (for the global batch under
+data parallelism, ``shard``). ``encode``,
 ``encode_video``, ``encode_audio`` and ``video_feature_map`` (the pre-GAP
 map that retrieval pools) give the towers' outputs alone.
 """
@@ -42,13 +43,16 @@ class AVModel(nn.Module):
                                  num_classes, use_mlp=use_mlp, generator=g)
 
     def forward(self, video, audio, return_features: bool = False,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                shard: tuple[int, int] = (0, 1)):
+        """``shard = (rank, world)``: dropout masks drawn for the global
+        batch, of which this rank keeps its rows (``heads.dropout``)."""
         feat_v = self.video_network(video)
         feat_a = self.audio_network(audio)
         if return_features:
             return feat_v, feat_a
-        return (self.video_heads(feat_v, generator),
-                self.audio_heads(feat_a, generator))
+        return (self.video_heads(feat_v, generator, shard),
+                self.audio_heads(feat_a, generator, shard))
 
     def encode(self, video, audio):
         """Pooled features of both modalities ``(feat_v, feat_a)``."""
@@ -64,13 +68,13 @@ class AVModel(nn.Module):
         """Pre-GAP video feature map ``[B, t, h, w, 512]`` in fp32."""
         return self.video_network(video, return_map=True)
 
-    def video_heads(self, feat_v, generator=None):
+    def video_heads(self, feat_v, generator=None, shard=(0, 1)):
         """All video heads on pooled features [B, 512] -> [H, B, K]."""
-        return self.heads_v(feat_v, generator)
+        return self.heads_v(feat_v, generator, shard)
 
-    def audio_heads(self, feat_a, generator=None):
+    def audio_heads(self, feat_a, generator=None, shard=(0, 1)):
         """All audio heads on pooled features [B, D_a] -> [H, B, K]."""
-        return self.heads_a(feat_a, generator)
+        return self.heads_a(feat_a, generator, shard)
 
 
 def load_model(vid_base_arch: str = "r2plus1d_18",

@@ -3,9 +3,11 @@
 * ``FlaxBatchNorm``: BatchNorm with the JAX package's (flax) semantics.
   flax ``momentum=0.9`` keeps 0.9 of the running statistic, which is torch
   ``momentum=0.1``; flax updates the running variance with the *biased*
-  batch variance where torch's BatchNorm uses the unbiased one. The layer
-  keeps cuDNN's fused statistics kernel and folds the correction into the
-  running-variance buffer around the call.
+  batch variance where torch's BatchNorm uses the unbiased one. In one
+  process the layer keeps cuDNN's fused statistics kernel and folds the
+  correction into the running-variance buffer around the call. Under a
+  process group it normalizes with the statistics of the global batch
+  (``GlobalBatchNorm``), as GSPMD's BatchNorm does over a sharded batch.
 * ``ConvBN``: Conv -> FlaxBatchNorm [-> ReLU] with explicit torch-style
   padding (``selavi_tpu/models/common.py::ConvBN``).
 * Initializers drawn from an explicit ``torch.Generator``: kaiming-normal
@@ -19,6 +21,7 @@ import math
 from typing import Sequence
 
 import torch
+import torch.distributed as tdist
 import torch.nn.functional as F
 from torch import nn
 
@@ -43,6 +46,69 @@ def uniform_fan_in_(t: torch.Tensor, fan_in: int, generator: torch.Generator):
     return t
 
 
+class GlobalBatchNorm(torch.autograd.Function):
+    """Train-mode BatchNorm over channel dim 1 with the statistics of the
+    batch that all ranks of the process group hold together.
+
+    Forward: the per-channel ``sum x``, ``sum x^2`` and the count, in fp32
+    (fp64 for fp64 input), read from ``x`` as it is (bf16 stays bf16 in
+    memory), all-reduced with SUM; flax's variance ``E[x^2] - E[x]^2``
+    clipped at 0; then one fused normalization (``F.batch_norm`` with
+    those statistics). Returns ``(y, mean, var)``, ``y`` in ``x``'s dtype.
+
+    Backward: torch's fused train-mode BatchNorm backward at the global
+    statistics gives the input gradient over this rank's sums and the
+    local ``sum dy * xhat`` and ``sum dy``, which are the weight's and
+    bias's gradients of this rank's loss. Those two sums, all-reduced,
+    give the input gradient of the loss summed over the ranks: the
+    difference between the global and the local means of ``dy`` and
+    ``dy * xhat``, a per-channel affine map of ``x``, is added to it (zero
+    with one rank). DDP's mean over the ranks then gives the gradient of
+    the global mean loss."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps: float):
+        c = x.shape[1]
+        dims = [0, *range(2, x.ndim)]
+        acc = torch.promote_types(x.dtype, torch.float32)
+        stats = torch.cat([
+            x.sum(dims, dtype=acc),
+            torch.linalg.vector_norm(x, 2, dims, dtype=acc).square(),
+            torch.full((1,), x.numel() // c, dtype=acc, device=x.device)])
+        tdist.all_reduce(stats)
+        n = stats[-1]
+        mean = stats[:c] / n
+        var = (stats[c:2 * c] / n - mean * mean).clamp_min(0.0)
+        y = F.batch_norm(x, mean, var, weight, bias, training=False,
+                         eps=eps)
+        ctx.eps = eps
+        ctx.save_for_backward(x, weight, mean, torch.rsqrt(var + eps), n)
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, weight, mean, invstd, n = ctx.saved_tensors
+        dx, dweight, dbias = torch.ops.aten.native_batch_norm_backward(
+            dy, x, weight, None, None, mean, invstd, True, ctx.eps,
+            [True, True, True])
+        local = torch.cat([dbias, dweight]).to(mean.dtype)
+        sums = local.clone()
+        tdist.all_reduce(sums)
+        if tdist.get_world_size() > 1:
+            c = x.shape[1]
+            shape = [1, c] + [1] * (x.ndim - 2)
+            n_local = x.numel() // c
+            # the local means that dx holds minus the global ones
+            d_dy = local[:c] / n_local - sums[:c] / n
+            d_dyxhat = local[c:] / n_local - sums[c:] / n
+            k = invstd * weight.to(mean.dtype)
+            slope = k * invstd * d_dyxhat
+            dx = dx.addcmul_(x, slope.view(shape)).add_(
+                (k * d_dy - slope * mean).view(shape))
+        return dx, dweight, dbias, None
+
+
 def flax_batch_norm(x, weight, bias, running_mean, running_var,
                     training: bool, momentum: float = BN_MOMENTUM,
                     eps: float = BN_EPS):
@@ -50,16 +116,25 @@ def flax_batch_norm(x, weight, bias, running_mean, running_var,
 
     Train mode normalizes with the biased batch variance (as both
     frameworks do) and updates ``running = momentum * running + (1 -
-    momentum) * batch`` with the biased variance. torch's kernel folds in
-    the unbiased variance ``v * s`` (``s = n / (n - 1)``), so it updates a
-    copy of the buffer scaled by ``s``, which is divided by ``s`` after:
-    ``((1-m') * rv * s + m' * v * s) / s = (1-m') * rv + m' * v``. The
-    kernel gets copies because autograd keeps its running-stat inputs for
-    the backward pass.
+    momentum) * batch`` with the biased variance. Under a process group
+    the statistics are the global batch's (``GlobalBatchNorm``). Otherwise
+    torch's kernel folds in the unbiased variance ``v * s`` (``s = n / (n
+    - 1)``), so it updates a copy of the buffer scaled by ``s``, which is
+    divided by ``s`` after: ``((1-m') * rv * s + m' * v * s) / s = (1-m') *
+    rv + m' * v``. The kernel gets copies because autograd keeps its
+    running-stat inputs for the backward pass.
     """
     if not training:
         return F.batch_norm(x, running_mean, running_var, weight, bias,
                             training=False, eps=eps)
+    if tdist.is_initialized():
+        out, mean, var = GlobalBatchNorm.apply(x, weight, bias, eps)
+        with torch.no_grad():
+            running_mean.mul_(momentum).add_(
+                mean.to(running_mean.dtype), alpha=1.0 - momentum)
+            running_var.mul_(momentum).add_(
+                var.to(running_var.dtype), alpha=1.0 - momentum)
+        return out
     count = x.numel() // x.shape[1]
     s = count / (count - 1) if count > 1 else 1.0
     with torch.no_grad():

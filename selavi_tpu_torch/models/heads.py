@@ -23,13 +23,21 @@ from selavi_tpu_torch.models.common import flax_batch_norm, uniform_fan_in_
 DROPOUT_RATE = 0.3
 
 
-def dropout(x, rate: float, generator: Optional[torch.Generator]):
-    """Inverted dropout with an explicit generator (keep prob 1 - rate)."""
+def dropout(x, rate: float, generator: Optional[torch.Generator],
+            shard: tuple[int, int] = (0, 1), dim: int = 0):
+    """Inverted dropout with an explicit generator (keep prob 1 - rate).
+    With ``shard = (rank, world)`` the mask is drawn for ``world`` times
+    the batch along ``dim`` and this rank keeps rows ``rank::world``."""
     if rate <= 0.0:
         return x
     if generator is None:
         raise ValueError("train-mode dropout needs an explicit generator")
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    rank, world = shard
+    shape = list(x.shape)
+    shape[dim] *= world
+    keep = torch.rand(shape, generator=generator, device=x.device) >= rate
+    if world > 1:
+        keep = keep.unflatten(dim, (-1, world)).select(dim + 1, rank)
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
@@ -58,8 +66,9 @@ class HeadStack(nn.Module):
         self.proj_bias = nn.Parameter(uniform_fan_in_(
             torch.empty(headcount, num_classes), proj_in, g))
 
-    def forward(self, feats, generator: Optional[torch.Generator] = None):
-        """feats [B, D] -> logits [H, B, K]."""
+    def forward(self, feats, generator: Optional[torch.Generator] = None,
+                shard: tuple[int, int] = (0, 1)):
+        """feats [B, D] -> logits [H, B, K]; ``shard`` as in ``dropout``."""
         h = self.headcount
         feats = feats.to(self.proj_weight.dtype)
         if not self.use_mlp:
@@ -69,7 +78,7 @@ class HeadStack(nn.Module):
         train = self.training
         x = feats.expand(h, *feats.shape)
         if train:
-            x = dropout(x, self.dropout_rate, generator)
+            x = dropout(x, self.dropout_rate, generator, shard, dim=1)
         x = torch.bmm(x, self.hidden_weight)  # [H, B, hidden]
         # BN per (head, channel) over the batch: [H, B, C] -> [B, H*C]
         b = x.shape[1]
@@ -80,7 +89,7 @@ class HeadStack(nn.Module):
                             self.bn_running_var.view(-1), train)
         x = torch.relu(x).reshape(b, h, -1).transpose(0, 1)
         if train:
-            x = dropout(x, self.dropout_rate, generator)
+            x = dropout(x, self.dropout_rate, generator, shard, dim=1)
         return torch.baddbmm(self.proj_bias[:, None, :], x, self.proj_weight)
 
     @torch.no_grad()

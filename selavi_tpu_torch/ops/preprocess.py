@@ -111,7 +111,8 @@ def draw_augmentations(b: int, generator: torch.Generator) -> dict:
 def augment_video_batch(frames_u8, generator: Optional[torch.Generator] = None,
                         colorjitter: bool = False, grayscale: bool = False,
                         flip: bool = True, dtype=torch.float32,
-                        draws: Optional[dict] = None, clips: int = 1):
+                        draws: Optional[dict] = None, clips: int = 1,
+                        shard: tuple[int, int] = (0, 1)):
     """Fused flip + normalize + color jitter + grayscale.
 
     ``frames_u8`` uint8 [B, T, H, W, 3]; returns normalized ``dtype`` video
@@ -119,7 +120,10 @@ def augment_video_batch(frames_u8, generator: Optional[torch.Generator] = None,
     concatenated along time in each sample) every clip draws its own flip
     and jitter, as the reference's per-clip ``clip_augmentation`` calls
     do. ``draws`` (keys ``flip, bf, cf, sf, perm_idx, jitter, gray``, each
-    ``[B * clips]``, sample-major) replaces the generator's draws.
+    ``[B * clips]``, sample-major) replaces the generator's draws. With
+    ``shard = (rank, world)`` the generator draws for the global batch of
+    ``world * B`` samples and this rank keeps samples ``rank::world``, the
+    rows that a rank-strided loader gives it.
     """
     b_in, t_in = frames_u8.shape[:2]
     if clips > 1:
@@ -129,7 +133,11 @@ def augment_video_batch(frames_u8, generator: Optional[torch.Generator] = None,
     if draws is None:
         if generator is None:
             raise ValueError("augment_video_batch needs a generator or draws")
-        draws = draw_augmentations(b, generator)
+        rank, world = shard
+        draws = draw_augmentations(b * world, generator)
+        if world > 1:
+            draws = {k: v.reshape(world * b_in, -1)[rank::world].reshape(-1)
+                     for k, v in draws.items()}
     draws = {k: v.to(frames_u8.device) for k, v in draws.items()}
     x = frames_u8.float() / 255.0
     if flip:

@@ -18,10 +18,21 @@
    TensorBoard ``writer`` when one is given, with the per-cluster entropy
    and purity histograms every 10th SK step.
 
+Under a process group each rank encodes its stride of the dataset and
+``parallel/mesh.py::gather_rows`` assembles the whole ``[N, D]`` on every
+rank. Every rank then makes the same host draws (the marginals, the
+matcher's seed) and solves every head on its own card; the audio heads
+take rank 0's permutation, and rank 0's labels, marginal state, costs and
+host RNG state replace every rank's at the end, so that all ranks go on
+alike whatever their solves' last bits. (JAX solves once, row-sharded over
+its mesh.)
+
 The module-level ``timings`` holds the last SK step's seconds: feature
-aggregation (``aggregate_s``, every group), modality matching
-(``match_s``) and the SK solves summed over heads (``solve_s``). On CUDA
-each boundary synchronises the device, so each span holds its own work.
+aggregation (``aggregate_s``, every group; under a process group
+``gather_s``, the part of it that gathers the ranks' rows), modality
+matching (``match_s``) and the SK solves summed over heads
+(``solve_s``). On CUDA each boundary synchronises the device, so each
+span holds its own work.
 """
 
 from __future__ import annotations
@@ -34,11 +45,13 @@ from typing import Callable, Iterator, Optional
 import numpy as np
 import torch
 
+from selavi_tpu_torch.data.loader import batch_valid
 from selavi_tpu_torch.eval.clustering import (
     adjusted_mutual_info,
     cluster_entropy_purity,
     normalized_mutual_info,
 )
+from selavi_tpu_torch.parallel import mesh
 from selavi_tpu_torch.selflabel.marginals import MarginalState, get_marginal
 from selavi_tpu_torch.selflabel.matching import match_order
 from selavi_tpu_torch.selflabel.sinkhorn import sinkhorn_knopp
@@ -80,16 +93,35 @@ def aggregate_features(
     feat_dim_a: Optional[int] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Forward every batch and scatter its features into ``[N, D]`` fp32
-    tensors on ``device`` at the batch's ``index`` rows."""
+    tensors on ``device`` at the batch's ``index`` rows. Under a process
+    group the rank's rows are kept and, after its last batch, gathered
+    from every rank (``gather_rows``, the wrap-padding dropped) before the
+    scatter, in ``timings["gather_s"]``."""
     ps_v = torch.zeros(n, feat_dim, dtype=torch.float32, device=device)
     ps_a = torch.zeros(n, feat_dim_a or feat_dim, dtype=torch.float32,
                        device=device)
+    grouped = mesh.world()[2] is not None
+    kept = []
     for batch in batch_iter:
         feat_v, feat_a = encode_fn(
             batch["video"], batch.get("audio", batch.get("audio_pcm")))
         idx = torch.as_tensor(batch["index"], dtype=torch.long).to(device)
+        if grouped:
+            kept.append((idx, batch_valid(batch, device), feat_v.float(),
+                         feat_a.float()))
+            continue
         ps_v.index_copy_(0, idx, feat_v.float())
         ps_a.index_copy_(0, idx, feat_a.float())
+    if grouped:
+        _synchronize(device)
+        t0 = time.perf_counter()
+        idx, valid, feat_v, feat_a = (torch.cat(c) for c in zip(*kept))
+        idx = mesh.gather_rows(idx, valid)
+        ps_v.index_copy_(0, idx, mesh.gather_rows(feat_v, valid))
+        ps_a.index_copy_(0, idx, mesh.gather_rows(feat_a, valid))
+        _synchronize(device)
+        timings["gather_s"] = (timings.get("gather_s", 0.0)
+                               + time.perf_counter() - t0)
     return ps_v, ps_a
 
 
@@ -132,6 +164,7 @@ def cluster(
     ``(new_selflabels [N, H], marginal_state, metrics)``.
     """
     t_start = time.time()
+    timings.clear()
     timings.update(aggregate_s=0.0, match_s=0.0, solve_s=0.0)
     old_labels = selflabels.copy()
     new_labels = selflabels.copy()
@@ -168,8 +201,8 @@ def cluster(
             logits_v_all = head_logits_fn(ps_v, "v")
             logits_a_all = head_logits_fn(ps_a, "a")
             for head in heads_in_group:
-                perm = match_order(logits_v_all[head], logits_a_all[head],
-                                   rng=np_rng)
+                perm = mesh.broadcast_object(match_order(
+                    logits_v_all[head], logits_a_all[head], rng=np_rng))
                 audio_heads.permute_output(head, perm)
                 logger.info(
                     "matched head %d (perm fixed points: %d/%d)", head,
@@ -225,6 +258,13 @@ def cluster(
             logger.info("head %d: SK cost %.3f, err %.3g, %d iters, %.2fs",
                         head, res.cost, res.err, res.iters, solve_s)
 
+    # every rank goes on with rank 0's outcome
+    mesh.broadcast_(torch.from_numpy(new_labels))  # in place
+    marginal_state, costs, iters, rng_state = mesh.broadcast_object(
+        (marginal_state, costs, iters, np_rng.bit_generator.state))
+    np_rng.bit_generator.state = rng_state
+    logger.info("SK split: %s",
+                ", ".join(f"{k} {v:.4f}" for k, v in timings.items()))
     metrics = {
         "sk_cost": float(np.mean(costs)),
         "sk_iters_max": int(max(iters)),

@@ -11,6 +11,10 @@ value, so ``torch.load(..., weights_only=True)`` reads it. A completed
 epoch is archived as ``{dump_checkpoints}/ckp-{epoch}.pth`` every
 ``checkpoint_freq`` epochs and at the last.
 
+Under data parallelism only rank 0 writes, the inner module's state (no
+``module.`` prefix), so the file is a one-GPU run's; every rank restores
+it onto its own device (``restore_checkpoint``).
+
 Unlike JAX arrays, the model's and the optimizer's tensors change in place
 at the next step, so ``save_checkpoint`` copies every tensor to host
 memory before it returns; only ``torch.save`` and the disk write may run
@@ -150,7 +154,8 @@ def restore_checkpoint(
 ) -> tuple[SelfLabelState, int, int]:
     """Load the model and optimizer in place from ``{dump_path}/
     checkpoint.pth`` (or from ``dump_path`` itself when it ends in
-    ``.pth``). Returns (sl_state, start_epoch, step); ``sl_state``, 0 and
+    ``.pth``), its tensors read onto the model's device (each rank its
+    own). Returns (sl_state, start_epoch, step); ``sl_state``, 0 and
     ``step`` unchanged when there is no file."""
     wait_for_pending_checkpoint()
     path = (dump_path if dump_path.endswith(".pth")
@@ -158,14 +163,16 @@ def restore_checkpoint(
     if not os.path.isfile(path):
         return sl_state, 0, step
     logger.info("Found checkpoint at %s", path)
-    payload = torch.load(path, map_location="cpu", weights_only=True)
+    payload = torch.load(path, map_location=next(model.parameters()).device,
+                         weights_only=True)
     model.load_state_dict(payload["model"])
     optimizer.load_state_dict(payload["optimizer"])
     dists = payload["dist"]["dists"]
     sl_state = SelfLabelState(
-        selflabels=payload["selflabels"].numpy().astype(np.int32),
+        selflabels=payload["selflabels"].cpu().numpy().astype(np.int32),
         marginals=MarginalState(
-            dists=None if dists is None else dists.numpy().astype(np.float64)),
+            dists=None if dists is None
+            else dists.cpu().numpy().astype(np.float64)),
         sk_counter=int(payload["sk_counter"]),
         epoch=int(payload["epoch"]),
     )

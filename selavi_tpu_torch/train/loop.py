@@ -1,4 +1,5 @@
-"""The pretraining loop on one GPU (``selavi_tpu/train/loop.py::Trainer``).
+"""The pretraining loop (``selavi_tpu/train/loop.py::Trainer``), on one GPU
+or data-parallel over the ranks of a process group, one GPU each.
 
 Resume from ``{dump_path}/checkpoint.pth`` if there is one, BN warmup when
 starting at epoch 0, then the epoch loop: each step trains on the current
@@ -24,10 +25,20 @@ The loader renders them on threads or spawned processes
 PCM into spectrograms there (``train/step.py::prepare_audio`` with the
 args' ``audio_cfg``). With ``--data_echo N`` each loaded batch trains N
 steps, each with fresh augmentations, and the epoch, the SK schedule and
-its fast-forward count N times the loader's batches. Multi-device meshes
-(``UNPORTED_FLAGS``) are not ported yet: a flag that asks for one makes
-the Trainer raise rather than train something other than what the JAX
-Trainer would.
+its fast-forward count N times the loader's batches.
+
+Under a process group (``parallel/dist.py``) the Trainer computes what the
+JAX Trainer computes on a data mesh of one device a rank: each rank loads
+``--batch_size`` samples a step from its stride of the epoch's order (and
+``--sk_agg_batch`` for the SK aggregation), the model runs under
+``DistributedDataParallel`` with BatchNorm over the global batch, the
+augmentations and dropout masks are the global batch's draws, the LR warms
+up to a multiplier of the world size, every rank holds the same SK labels
+(rank 0's, ``selflabel/engine.py``), rank 0 writes the checkpoints and the
+ranks agree on a preemption exit (``dist.StopVote``). Head sharding over
+``--model_axis`` (``UNPORTED_FLAGS``) is not ported yet: the flag makes the
+Trainer raise rather than train something other than what the JAX Trainer
+would.
 """
 
 from __future__ import annotations
@@ -45,10 +56,11 @@ from selavi_tpu_torch.data.loader import DataLoader, decode_wire_batches
 from selavi_tpu_torch.device import resolve_device
 from selavi_tpu_torch.models.av_model import load_model
 from selavi_tpu_torch.models.resnet_audio import AUDIO_ARCHS
+from selavi_tpu_torch.parallel import mesh
 from selavi_tpu_torch.parallel.dist import (
-    MULTI_GPU_ITEM,
-    memory_pressure,
-    signal_received,
+    HEAD_SHARDING_ITEM,
+    StopVote,
+    sync_hosts,
 )
 from selavi_tpu_torch.selflabel.engine import SKConfig, cluster
 from selavi_tpu_torch.selflabel.schedule import (
@@ -79,7 +91,7 @@ JAX_CKPT_NAME = "checkpoint.msgpack"
 # Trainer does not implement: flag -> (default, the ROADMAP Queue 1 item
 # that ports it). Any other value raises NotImplementedError.
 UNPORTED_FLAGS = {
-    "model_axis": (1, MULTI_GPU_ITEM),
+    "model_axis": (1, HEAD_SHARDING_ITEM),
 }
 
 
@@ -121,6 +133,18 @@ class Trainer:
             # the stem takes the example's audio channels: 2 for dual_data
             audio_channels=example_shapes(args, dataset)[1][-1],
         )
+        self.rank, self.world_size, group = mesh.world()
+        self.shard = (self.rank, self.world_size)
+        # the model's forward in the train step
+        self.net = self.model
+        if group is not None:
+            self.net = mesh.data_parallel(self.model, self.device)
+            logger.info("data parallel: rank %d of %d, backend %s, %s with "
+                        "global BatchNorm", self.rank, self.world_size,
+                        torch.distributed.get_backend(),
+                        type(self.net).__name__)
+        # --batch_size per process: the JAX Trainer's batch_size *
+        # n_devices // n_proc with one device a process
         self.loader = self._loader(
             batch_size=args.batch_size, shuffle=True, drop_last=True,
             seed=args.seed, prefetch=getattr(args, "prefetch", 2))
@@ -132,10 +156,12 @@ class Trainer:
         self.optimizer = make_optimizer(self.model, args.base_lr, args.wd)
         self.audio_cfg = audio_cfg_from_args(args)
         self.train_step = steps.make_train_step(
-            self.model, self.optimizer, colorjitter=args.colorjitter,
+            self.net, self.optimizer, colorjitter=args.colorjitter,
             grayscale=args.use_grayscale, compute_dtype=self.compute_dtype,
             audio_cfg=self.audio_cfg, video_clips=self.video_clips,
+            shard=self.shard,
         )
+        self.stop_vote = StopVote()
         n = len(dataset)
         self.sl_state = SelfLabelState.init(n, args.headcount)
         self.step = 0  # optimizer steps taken (JAX's TrainState.step)
@@ -169,11 +195,11 @@ class Trainer:
         self._eval_iter_count = 0
 
     def _loader(self, **kwargs) -> DataLoader:
-        """A loader of the dataset on the Trainer's device, with the args'
-        workers, worker mode and transfer mode."""
+        """A loader of this rank's stride of the dataset on the Trainer's
+        device, with the args' workers, worker mode and transfer mode."""
         return DataLoader(
             self.dataset, num_workers=getattr(self.args, "workers", 0),
-            device=self.device,
+            device=self.device, rank=self.rank, world_size=self.world_size,
             worker_mode=getattr(self.args, "worker_mode", "thread"),
             coalesce=getattr(self.args, "coalesce_transfers", True),
             **kwargs)
@@ -215,10 +241,12 @@ class Trainer:
             steps.bn_warmup_step(
                 self.model, batch["video"],
                 batch.get("audio", batch.get("audio_pcm")), gen,
-                self.compute_dtype, self.audio_cfg, self.video_clips)
+                self.compute_dtype, self.audio_cfg, self.video_clips,
+                self.shard)
 
     def _make_eval_iter(self) -> Iterator[dict]:
-        """A fresh sequential full-dataset iterator for SK aggregation; its
+        """A fresh sequential iterator over this rank's stride of the
+        dataset for SK aggregation (``--sk_agg_batch`` per process); its
         worker processes, if any, stop when it ends."""
         self._eval_iter_count += 1
         loader = self._loader(
@@ -239,7 +267,7 @@ class Trainer:
             augment=self.sk_augment, colorjitter=self.args.colorjitter,
             grayscale=self.args.use_grayscale,
             compute_dtype=self.compute_dtype, audio_cfg=self.audio_cfg,
-            video_clips=self.video_clips,
+            video_clips=self.video_clips, shard=self.shard,
         )
 
     def maybe_cluster(self, iteration: int) -> bool:
@@ -278,12 +306,9 @@ class Trainer:
         if self.batches_per_epoch == 0:
             raise ValueError(
                 f"dataset ({len(self.dataset)} samples) is smaller than one "
-                f"batch ({self.loader.batch_size}) with drop_last"
+                f"global batch ({self.loader.batch_size} per process x "
+                f"{self.world_size} processes with drop_last)"
             )
-        set_lr(self.optimizer, warmup_lr(
-            epoch, self.args.base_lr, 1.0, self.args.warmup_epochs,
-            self.args.use_warmup_scheduler,
-        ))
         self.loader.set_epoch(epoch)
         losses = AverageMeter()
         batch_time = AverageMeter()
@@ -297,15 +322,23 @@ class Trainer:
             if self.maybe_cluster(batches_thusfar + it):
                 labels_dev = torch.from_numpy(self.sl_state.selflabels).to(
                     self.device)
+            # the JAX schedule, indexed by the optimizer step: right after
+            # a mid-epoch resume too
+            set_lr(self.optimizer, warmup_lr(
+                self.step // self.batches_per_epoch, self.args.base_lr,
+                float(self.world_size), self.args.warmup_epochs,
+                self.args.use_warmup_scheduler))
             metrics = self.train_step(batch, labels_dev[batch["index"]],
                                       self.step_gen)
             self.step += 1
-            # the loss is read (a host sync) only at the logging cadence
+            # the loss is read (a host sync; the mean over the ranks) only
+            # at the logging cadence
             batch_time.update(time.time() - end)
             end = time.time()
             if it % LOG_EVERY == 0:
-                loss = float(metrics["loss"])
-                losses.update(loss, batch["video"].shape[0])
+                loss = float(mesh.mean_over_ranks(metrics["loss"]))
+                # weighted by the global batch, as the JAX Trainer's
+                losses.update(loss, batch["video"].shape[0] * self.world_size)
                 self.history.append({"epoch": epoch, "iter": it,
                                      "loss": loss})
                 logger.info(
@@ -320,31 +353,36 @@ class Trainer:
                                            iteration)
                     self.writer.add_scalar("data_time/iter", data_time.avg,
                                            iteration)
-            if signal_received() or memory_pressure():
+            if self.stop_vote.poll():
                 # mid-epoch: stamp the CURRENT epoch as the resume point so
                 # the interrupted epoch re-runs in full, with its scheduled
                 # SK steps
                 self.checkpoint(epoch, completed=False)
                 wait_for_pending_checkpoint()  # flush before exiting
+                sync_hosts()  # no rank exits before rank 0's file is whole
                 logger.warning("preemption checkpoint written; exiting")
                 raise SystemExit(0)
         # the last step's loss, weight 1, as the JAX Trainer's epoch loss
-        losses.update(float(metrics["loss"]), 1)
+        losses.update(float(mesh.mean_over_ranks(metrics["loss"])), 1)
         return losses.avg
 
     def checkpoint(self, epoch: int, completed: bool = True) -> None:
+        """Rank 0 writes the inner module's state (the file of a one-GPU
+        run); then the ranks meet."""
         # one source for the resume point, shared with the file
         resume_epoch = epoch + 1 if completed else epoch
         self.sl_state.epoch = resume_epoch
-        save_checkpoint(
-            self.args.dump_path, self.model, self.optimizer, self.sl_state,
-            epoch, step=self.step,
-            checkpoint_freq=self.args.checkpoint_freq,
-            total_epochs=self.args.epochs,
-            dump_checkpoints=getattr(self.args, "dump_checkpoints", None),
-            async_write=self.args.async_checkpoint,
-            resume_epoch=resume_epoch,
-        )
+        if self.rank == 0:
+            save_checkpoint(
+                self.args.dump_path, self.model, self.optimizer,
+                self.sl_state, epoch, step=self.step,
+                checkpoint_freq=self.args.checkpoint_freq,
+                total_epochs=self.args.epochs,
+                dump_checkpoints=getattr(self.args, "dump_checkpoints", None),
+                async_write=self.args.async_checkpoint,
+                resume_epoch=resume_epoch,
+            )
+        sync_hosts()
 
     def fit(self) -> list[dict]:
         """Resume, BN warmup when starting at epoch 0, then every remaining
@@ -360,13 +398,16 @@ class Trainer:
                 f"(docs/DEVIATIONS.md item 8). Its weights alone can move: "
                 f"{REFERENCE_IMPORT_ROUTE}")
         start_epoch = self.resume()
+        # each rank its own trace: rank r > 0 under {dump_path}/rank{r}
+        trace_dir = (self.args.dump_path if self.rank == 0 else
+                     os.path.join(self.args.dump_path, f"rank{self.rank}"))
         try:
             if start_epoch == 0:
                 self.warmup_batchnorm()
             for epoch in range(start_epoch, self.args.epochs):
                 logger.info("============ Starting epoch %i ============",
                             epoch)
-                with trace_window(self.args.dump_path,
+                with trace_window(trace_dir,
                                   enabled=(self.args.trace_profile
                                            and epoch == start_epoch)):
                     loss = self.train_epoch(epoch)
@@ -374,5 +415,6 @@ class Trainer:
                 self.history.append({"epoch": epoch, "loss": loss})
         finally:
             self.loader.close()  # the worker processes, if any
+        self.stop_vote.drain()  # the last step's vote: the run is done
         wait_for_pending_checkpoint()  # flush the final async write
         return self.history

@@ -12,6 +12,12 @@ turns into spectrograms on the device (``ops/logmel.py``), in fp32 and
 outside autocast. With ``--dual_data`` (``video_clips=2``) a sample holds
 two clips concatenated along time, each augmented with its own draws, and
 its audio two channels.
+
+Under data parallelism (``shard = (rank, world)``) every rank draws the
+flips, jitters and dropout masks of the global batch from the generator
+that all ranks seed alike, and keeps its rows ``rank::world``: a
+``world``-rank step sees the draws of the one-rank step at ``world`` times
+the batch. ``model`` may be a ``DistributedDataParallel`` wrapper.
 """
 
 from __future__ import annotations
@@ -66,13 +72,15 @@ def multihead_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 def make_train_step(model, optimizer, colorjitter: bool = False,
                     grayscale: bool = False,
                     compute_dtype: torch.dtype = torch.float32,
-                    audio_cfg: Optional[dict] = None, video_clips: int = 1):
+                    audio_cfg: Optional[dict] = None, video_clips: int = 1,
+                    shard: tuple[int, int] = (0, 1)):
     """Returns ``step(batch, labels, generator) -> metrics`` (0-dim tensors,
-    not synced). ``batch['video']`` uint8 [B,T,H,W,3] and
-    ``batch['audio']`` fp32 [B,F,T,1] (or ``batch['audio_pcm']`` [B,S],
-    turned into spectrograms by ``prepare_audio``) on the device;
-    ``labels`` [B, H]. ``video_clips`` > 1 (dual_data) gives each
-    time-concatenated clip its own flip and jitter."""
+    not synced; the loss is this rank's). ``batch['video']`` uint8
+    [B,T,H,W,3] and ``batch['audio']`` fp32 [B,F,T,1] (or
+    ``batch['audio_pcm']`` [B,S], turned into spectrograms by
+    ``prepare_audio``) on the device; ``labels`` [B, H]. ``video_clips`` >
+    1 (dual_data) gives each time-concatenated clip its own flip and
+    jitter; ``shard`` as in the module docstring."""
     param = next(model.parameters())
     device, dtype = param.device, param.dtype
 
@@ -81,11 +89,13 @@ def make_train_step(model, optimizer, colorjitter: bool = False,
         video = augment_video_batch(batch["video"], generator,
                                     colorjitter=colorjitter,
                                     grayscale=grayscale, flip=True,
-                                    dtype=dtype, clips=video_clips)
+                                    dtype=dtype, clips=video_clips,
+                                    shard=shard)
         audio = prepare_audio(batch.get("audio", batch.get("audio_pcm")),
                               dtype, audio_cfg)
         with autocast(device, compute_dtype):
-            logits_v, logits_a = model(video, audio, generator=generator)
+            logits_v, logits_a = model(video, audio, generator=generator,
+                                       shard=shard)
             loss_v = multihead_ce(logits_v, labels)
             loss_a = multihead_ce(logits_a, labels)
             loss = 0.5 * loss_v + 0.5 * loss_a
@@ -101,16 +111,17 @@ def make_train_step(model, optimizer, colorjitter: bool = False,
 @torch.no_grad()
 def bn_warmup_step(model, video_u8, audio, generator,
                    compute_dtype: torch.dtype = torch.float32,
-                   audio_cfg: Optional[dict] = None, video_clips: int = 1):
+                   audio_cfg: Optional[dict] = None, video_clips: int = 1,
+                   shard: tuple[int, int] = (0, 1)):
     """Forward-only train-mode pass (heads included) that updates the BN
     running statistics."""
     device = video_u8.device
     model.train()
     video = augment_video_batch(video_u8, generator, flip=True,
-                                clips=video_clips)
+                                clips=video_clips, shard=shard)
     audio = prepare_audio(audio, next(model.parameters()).dtype, audio_cfg)
     with autocast(device, compute_dtype):
-        model(video, audio, generator=generator)
+        model(video, audio, generator=generator, shard=shard)
 
 
 def match_audio_channels(spec: torch.Tensor,
@@ -129,7 +140,8 @@ def encode(model, video_u8, audio, generator=None, augment: bool = True,
            colorjitter: bool = False, grayscale: bool = False,
            compute_dtype: torch.dtype = torch.float32,
            audio_cfg: Optional[dict] = None,
-           audio_channels: Optional[int] = None, video_clips: int = 1):
+           audio_channels: Optional[int] = None, video_clips: int = 1,
+           shard: tuple[int, int] = (0, 1)):
     """Eval-mode pooled features ``(feat_v, feat_a)`` for SK aggregation.
     ``augment`` runs the train-time flip (and jitter/grayscale when set;
     per clip with ``video_clips`` > 1); otherwise the video is only
@@ -141,7 +153,7 @@ def encode(model, video_u8, audio, generator=None, augment: bool = True,
         video = augment_video_batch(video_u8, generator,
                                     colorjitter=colorjitter,
                                     grayscale=grayscale, flip=True,
-                                    clips=video_clips)
+                                    clips=video_clips, shard=shard)
     else:
         video = normalize_video(video_u8)
     audio = match_audio_channels(

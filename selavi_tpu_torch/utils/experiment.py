@@ -1,7 +1,10 @@
 """Experiment bootstrap (``selavi_tpu/utils/experiment.py``): dump the
 params, create the checkpoint directory, the logger and the stats file.
 
-The port runs one process, so it is always rank 0.
+The rank is ``params.rank`` (``parallel/dist.py::init_distributed_mode``
+records it; 0 without one): rank 0 dumps ``params.pkl`` and logs to
+``train.log``, rank r to ``train.log-{r}``, and each rank keeps
+``stats{r}.pkl``.
 """
 
 from __future__ import annotations
@@ -19,11 +22,11 @@ from selavi_tpu_torch.utils.logger import PDStats, create_logger
 def initialize_exp(params, *stat_columns, dump_params: bool = True):
     """Returns (logger, PDStats). ``params`` is any object with a
     ``dump_path`` attribute (an argparse Namespace)."""
-    rank = 0
+    rank = getattr(params, "rank", 0)
     dump_path = Path(params.dump_path)
     dump_path.mkdir(parents=True, exist_ok=True)
 
-    if dump_params:
+    if dump_params and rank == 0:
         with open(dump_path / "params.pkl", "wb") as f:
             pickle.dump(params, f)
 

@@ -6,7 +6,8 @@ JAX package's counterparts where there is one:
   warmup and no SK step on the resumed run), and the refusal of the CPU
   without an explicit request;
 * ``parallel/dist.py``: the signal flag and the host-RSS watchdog
-  (``tests/test_preemption.py``'s checks), one process only;
+  (``tests/test_preemption.py``'s checks), and the process group of one
+  rank that torchrun's variables ask for;
 * ``utils/{logger,meters}.py``: the log line layout, ``AverageMeter`` and
   the stats rows against JAX's;
 * ``utils/profiling.py::trace_window`` writes a trace on the CPU.
@@ -19,6 +20,7 @@ import pickle
 import re
 import shutil
 import signal
+import socket
 
 import pytest
 import torch
@@ -202,16 +204,32 @@ def test_memory_watchdog_trips_preemption_path():
 
 
 def test_one_process_only(monkeypatch):
+    """No torchrun variables: rank 0 of 1 and no process group. torchrun's
+    variables for one rank: a gloo group on the CPU, recorded on args and
+    torn down by ``distributed`` at exit."""
     class Args:
         pass
 
-    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    for key in dist.TORCHRUN_VARS:
+        monkeypatch.delenv(key, raising=False)
     args = Args()
-    assert dist.init_distributed_mode(args) == (0, 1)
+    assert dist.init_distributed_mode(args, "cpu") == (0, 1)
     assert (args.rank, args.world_size) == (0, 1)
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11"):
-        dist.init_distributed_mode(Args())
+    assert not torch.distributed.is_initialized()
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    for key, value in (("RANK", "0"), ("WORLD_SIZE", "1"),
+                       ("LOCAL_RANK", "0"), ("MASTER_ADDR", "localhost"),
+                       ("MASTER_PORT", str(port))):
+        monkeypatch.setenv(key, value)
+    args = Args()
+    with dist.distributed(args, "cpu") as ranks:
+        assert ranks == (0, 1) and (args.rank, args.world_size) == (0, 1)
+        assert torch.distributed.get_backend() == "gloo"
+        assert torch.distributed.get_world_size() == 1
+    assert not torch.distributed.is_initialized()
 
 
 # ------------------------------------------------ logger, meter and stats

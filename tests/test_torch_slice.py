@@ -149,7 +149,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "experiments.conv3x3", "cli.main", "cli.pack_dataset",
                  "data.factory", "data.transforms", "data.decoder",
                  "data.dataset", "data.packed", "ops.logmel",
-                 "parallel.dist", "train.checkpoint", "train.state",
+                 "parallel.dist", "parallel.mesh", "train.checkpoint",
+                 "train.state", "train.loop", "train.step",
+                 "selflabel.engine", "models.common",
                  "train.torch_export", "utils.experiment", "utils.logger",
                  "utils.meters", "utils.profiling", "native",
                  "eval.clustering", "eval.get_clusters", "cli.get_clusters",
