@@ -90,7 +90,12 @@ with the launch counts set to 0 just before and read just after each:
   BatchNorm against cuDNN's on one recipe batch (logits and input
   gradient, fp32 and bf16), and the DDP step's all-reduces (profiler) and
   clips/s beside the plain step's. One card cannot hold two ranks of an
-  NCCL group, so world 1 is what the card drives.
+  NCCL group, so world 1 is what NCCL drives on it; head sharding then runs
+  on two gloo ranks of the one card (``chip_smoke.py --grid-rank``), the
+  CLI at ``--model_axis 1`` and at ``2``: the SK labels, the step-0 loss,
+  each rank's fused SK launches (its heads' iterations), peak memory, head
+  bytes and step clips/s (through the host: no figure of NVLink), and the
+  ``M = 2`` checkpoint resumed by a plain Trainer with all 10 heads.
 Before the packed path it holds the card's audio frontend against the
 host's numpy spectrogram (a batch of 24 clips of 48000 samples, 257
 filters, z-normalized) and the card's YUV decode against its CPU result
@@ -272,6 +277,16 @@ CONV_RAGGED_SHAPES = {
 DIST_ARGS = "--bn_warmup_batches 0"
 DIST_TIMEOUT_S = 600
 DIST_LOSS_ATOL = 0.01
+# Head sharding in the distributed phase: two gloo ranks on the one card
+# (NCCL puts no two ranks of a group on one card), each the CLI at the main
+# path's recipe with DIST_ARGS, at --model_axis 1 and then 2; the limit of
+# both ranks' runs in seconds, and the steps on a resident batch timed
+# after each. The SK labels at M = 2 must equal M = 1's; where the heads'
+# logits differ in their last bits (cuBLAS may take other kernels for a
+# batch of 5 heads than of 10), at least GRID_LABELS_MIN of them.
+GRID_TIMEOUT_S = 420
+GRID_STEPS = 5
+GRID_LABELS_MIN = 0.99
 # Global BatchNorm vs cuDNN's on one recipe batch (train-mode logits and
 # the input video's gradient). Through 51 BatchNorms the input gradient
 # is ill-conditioned: on an H100 cuDNN's own fp32 gradient is 5% of its
@@ -1860,7 +1875,8 @@ def distributed_path(torch, sf, device, report, tmp):
     Then, in this process with a 1-rank NCCL group: the global-BatchNorm
     route against cuDNN's on one batch of the recipe (outputs and input
     gradient, fp32 and bf16), the NCCL all-reduces of one DDP step from
-    the profiler, and the DDP step's clips/s beside the plain step's."""
+    the profiler, and the DDP step's clips/s beside the plain step's.
+    Then head sharding on two gloo ranks of the card (``grid_path``)."""
     import subprocess
 
     import torch.distributed as tdist
@@ -2043,6 +2059,236 @@ def distributed_path(torch, sf, device, report, tmp):
               and err(gg, ref_grad) <= BN_ROUTE_RATIO * err(go, ref_grad)
               + BN_ROUTE_FLOOR * scales[1],
               f"the {name} global route is as close to fp64 as cuDNN's")
+    del routes, ref_out, ref_grad, dataset, batch
+    torch.cuda.empty_cache()
+    grid_path(torch, report, tmp)
+
+
+def grid_path(torch, report, tmp):
+    """Phase 9b: head sharding over ``--model_axis`` on two gloo ranks of
+    the one card (``grid_rank``), the CLI at ``M = 1`` and then ``M = 2``
+    in each. Holds the SK labels of ``M = 2`` to ``M = 1``'s (all, or
+    ``GRID_LABELS_MIN`` where the heads' logits differ in their last
+    bits), the step-0 loss within ``DIST_LOSS_ATOL``, each rank's fused SK
+    launches to its own heads' iterations (5 heads at ``M = 2``, 10 at
+    ``M = 1``), and resumes the ``M = 2`` checkpoint in a plain Trainer
+    (no group, ``M = 1``) with all 10 heads; prints each process's peak
+    memory, head bytes and step clips/s."""
+    import subprocess
+
+    import numpy as np
+
+    from selavi_tpu_torch.config import parse_arguments
+    from selavi_tpu_torch.data.factory import build_dataset
+    from selavi_tpu_torch.parallel import dist
+    from selavi_tpu_torch.train import checkpoint as ckpt
+    from selavi_tpu_torch.train import loop
+
+    card = report["card"]
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    for key in dist.TORCHRUN_VARS:
+        env.pop(key, None)
+    port = _free_port()
+    outs = [os.path.join(tmp, f"grid{rank}.out") for rank in range(2)]
+    procs = []
+    try:
+        for rank, path in enumerate(outs):
+            with open(path, "w") as out:
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), "--grid-rank",
+                     str(rank), str(port), tmp], cwd=root, env=env,
+                    stdout=out, stderr=subprocess.STDOUT,
+                    start_new_session=True))
+        deadline = time.monotonic() + GRID_TIMEOUT_S
+        for proc in procs:
+            proc.wait(timeout=max(deadline - time.monotonic(), 1.0))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+    codes = [proc.returncode for proc in procs]
+    if codes != [0, 0]:
+        for path in outs:
+            with open(path) as f:
+                print(f.read()[-6000:], file=sys.stderr, flush=True)
+    check(codes == [0, 0], f"both grid ranks exit 0 (got {codes})")
+    ranks = [torch.load(os.path.join(tmp, f"rank{rank}.pt"),
+                        weights_only=False) for rank in range(2)]
+    one, two = ranks[0][1], ranks[0][2]
+    agree = (one["labels"] == two["labels"]).mean(axis=0)
+    logit_d = max(r[2]["logit_diff"] for r in ranks)
+    print(f"grid runs (2 gloo ranks on {card}, the CLI at the recipe with "
+          f"{DIST_ARGS}, --model_axis 1 then 2): "
+          f"{time.perf_counter() - t_phase:.1f} s; "
+          f"nets {one['net']} / {two['net']}; step-0 loss {one['loss0']:.4f} "
+          f"vs {two['loss0']:.4f}; SK labels at M = 2 equal to M = 1's for "
+          f"{agree.mean() * 100:.2f}% of (sample, head), the least on a head "
+          f"{agree.min() * 100:.2f}%; max |d SK logits| of a rank's heads "
+          f"{logit_d:.3e}", flush=True)
+    for m in (1, 2):
+        rows = [r[m] for r in ranks]
+        print(f"grid run --model_axis {m} on {card}: ranks' heads "
+              f"{[r['heads'] for r in rows]}, fused SK launches "
+              f"{[r['launches'] for r in rows]} (their solves' iterations "
+              f"{[sum(r['solves']) for r in rows]}, "
+              f"{[len(r['solves']) for r in rows]} solves), CLI "
+              f"{[round(r['wall_s'], 1) for r in rows]} s, peak "
+              f"{[round(r['peak_gb'], 2) for r in rows]} GB, head parameters, "
+              f"statistics and momentum {[r['head_bytes'] for r in rows]} "
+              f"bytes; the step on a resident batch "
+              f"{2 * 24 / rows[0]['step_s']:.2f} clips/s over both ranks "
+              f"(gloo through the host on one card: not a figure of NVLink "
+              f"or of two cards)", flush=True)
+        for r in rows:
+            check(r["exit"] is None, f"the grid run at M = {m} trains")
+            check(r["launches"] == sum(r["solves"]) > 0,
+                  f"one fused SK launch per iteration of the rank's own "
+                  f"solves at M = {m}")
+            check(len(r["solves"]) == 10 // m,
+                  f"each rank solves its {10 // m} heads at M = {m}")
+    check(one["net"] == "DistributedDataParallel"
+          and two["net"] == "GridParallel", "M = 1 DDP, M = 2 GridParallel")
+    check(abs(one["loss0"] - two["loss0"]) <= DIST_LOSS_ATOL,
+          f"the M = 2 step-0 loss within {DIST_LOSS_ATOL} of M = 1's")
+    check(agree.min() == 1.0 or (logit_d > 0 and agree.mean()
+                                 >= GRID_LABELS_MIN),
+          "the SK labels at M = 2 equal M = 1's (or, where cuBLAS gave the "
+          f"5-head logits other bits, {GRID_LABELS_MIN:.0%} of them)")
+    report["grid"] = {"loss0": (one["loss0"], two["loss0"]),
+                      "labels_equal": float(agree.mean()),
+                      "logit_diff": logit_d,
+                      "launches": {m: [r[m]["launches"] for r in ranks]
+                                   for m in (1, 2)},
+                      "clips_per_s": {m: 2 * 24 / ranks[0][m]["step_s"]
+                                      for m in (1, 2)}}
+
+    # the M = 2 file in a plain Trainer (no group, M = 1)
+    dump = os.path.join(tmp, "m2")
+    args = parse_arguments().parse_args(
+        (MAIN_ARGS + " " + DIST_ARGS).split() + ["--dump_path", dump])
+    resumed = loop.Trainer(args, build_dataset(args))
+    start = resumed.resume()
+    saved = torch.load(os.path.join(dump, ckpt.CKPT_NAME), map_location="cpu",
+                       weights_only=True)
+    same = all(torch.equal(v.cpu(), saved["model"][k])
+               for k, v in resumed.model.state_dict().items())
+    heads = {k: tuple(saved["model"][k].shape)[0] for k in saved["model"]
+             if k.startswith("heads_")}
+    labels = np.array_equal(saved["selflabels"].numpy(), two["labels"])
+    print(f"grid checkpoint (--model_axis 2): epoch {saved['epoch']}, head "
+          f"tensors of {sorted(set(heads.values()))} heads, its labels those "
+          f"of the run {labels}; plain Trainer (--model_axis 1) resumed at "
+          f"epoch {start}, model equal {same}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    check(start == 1 and same and set(heads.values()) == {10} and labels,
+          "a plain Trainer resumes the M = 2 checkpoint with all 10 heads")
+    resumed.loader.close()
+    del resumed
+
+
+def grid_rank(rank: int, port: int, tmp: str) -> int:
+    """A rank of ``grid_path``, run as ``chip_smoke.py --grid-rank RANK PORT
+    DIR``: joins a 2-rank gloo group on ``tcp://localhost:PORT`` with the
+    card, runs the CLI at the recipe at ``--model_axis`` 1 and 2 (dump paths
+    ``DIR/m1``, ``DIR/m2``), times ``GRID_STEPS`` steps on a resident batch
+    after each, and writes what it saw to ``DIR/rank{RANK}.pt``."""
+    import torch
+    import torch.distributed as tdist
+
+    from selavi_tpu_torch.cli import main as cli_main
+    from selavi_tpu_torch.data.loader import decode_wire_batch
+    from selavi_tpu_torch.ops import sinkhorn_fused as sf
+    from selavi_tpu_torch.selflabel import engine
+    from selavi_tpu_torch.train import loop
+    from selavi_tpu_torch.train import step as steps
+
+    logging.basicConfig(level=logging.INFO, stream=sys.stderr,
+                        format="%(asctime)s %(name)s %(message)s")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    tdist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                             rank=rank, world_size=2)
+    logits, solves = [], []
+    head_logits, solve = steps.head_logits, engine.sinkhorn_knopp
+
+    def recorded_logits(*args, **kwargs):
+        out = head_logits(*args, **kwargs)
+        logits.append(out.float().cpu())
+        return out
+
+    def recorded_solve(*args, **kwargs):
+        res = solve(*args, **kwargs)
+        solves.append(res.iters)
+        return res
+
+    steps.head_logits, engine.sinkhorn_knopp = recorded_logits, recorded_solve
+    out = {}
+    try:
+        for m in (1, 2):
+            logits.clear()
+            solves.clear()
+            sf.reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            code, trainer = _run_cli(cli_main, (MAIN_ARGS + " " + DIST_ARGS)
+                                     .split() + ["--model_axis", str(m),
+                                                 "--dump_path",
+                                                 os.path.join(tmp, f"m{m}")],
+                                     loop.Trainer)
+            wall = time.perf_counter() - t0
+            _restore_process_state()
+            launches = sf.launches
+            stacks = (trainer.model.heads_v, trainer.model.heads_a)
+            tensors = [t for h in stacks for t in (*h.parameters(),
+                                                   *h.buffers())]
+            tensors += [trainer.optimizer.state[p]["momentum_buffer"]
+                        for h in stacks for p in h.parameters()]
+            # the step on a resident batch, both ranks in step
+            batch = next(iter(trainer.loader))
+            labels = torch.zeros(24, 10, dtype=torch.long, device=device)
+            gen = torch.Generator(device=device).manual_seed(0)
+            for _ in range(2):
+                trainer.train_step(decode_wire_batch(batch), labels, gen)
+            torch.cuda.synchronize()
+            tdist.barrier()
+            t0 = time.perf_counter()
+            for _ in range(GRID_STEPS):
+                trainer.train_step(decode_wire_batch(batch), labels, gen)
+            torch.cuda.synchronize()
+            step_s = (time.perf_counter() - t0) / GRID_STEPS
+            trainer.loader.close()
+            first, count = trainer.grid.heads(10)
+            out[m] = {
+                "exit": code, "wall_s": wall, "launches": launches,
+                "solves": list(solves), "heads": (first, count),
+                "loss0": next(h["loss"] for h in trainer.history
+                              if "iter" in h),
+                "labels": trainer.sl_state.selflabels.copy(),
+                "logits": logits[:2],  # video and audio, before matching
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "head_bytes": sum(t.numel() * t.element_size()
+                                  for t in tensors),
+                "step_s": step_s, "net": type(trainer.net).__name__,
+            }
+            del trainer, batch
+            torch.cuda.empty_cache()
+    finally:
+        steps.head_logits, engine.sinkhorn_knopp = head_logits, solve
+    # this rank's heads' SK logits at M = 2 against the same heads' at 1
+    first, count = out[2]["heads"]
+    out[2]["logit_diff"] = max(
+        float((b - a[first:first + count]).abs().max())
+        for a, b in zip(out[1].pop("logits"), out[2].pop("logits")))
+    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+    tdist.destroy_process_group()
+    return 0
 
 
 def _ddp_step(torch, trainer, report):
@@ -2093,6 +2339,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--grid-rank"]:  # a rank of grid_path
+        return grid_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     from selavi_tpu_torch import measure, native
     from selavi_tpu_torch.ops import _build
     from selavi_tpu_torch.ops import conv3x3 as conv

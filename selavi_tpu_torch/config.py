@@ -3,10 +3,8 @@
 The port's Trainer reads the same ``args`` namespace as the JAX package's,
 so recipes carry over. ``--sk_backend`` also takes the port's own names
 (``fused``, ``plain``) beside the JAX ones (``pallas``, ``xla``), which
-mean the same backends here. Flags for paths the port does not run yet (the
-mesh's model axis) are kept so that one command line serves both
-packages; the Trainer refuses a value other than their default
-(``train/loop.py::UNPORTED_FLAGS``).
+mean the same backends here. ``--model_axis`` splits the head stacks over
+a process grid's model axis (``parallel/mesh.py::make_grid``).
 """
 
 from __future__ import annotations
@@ -165,7 +163,9 @@ def parse_arguments() -> argparse.ArgumentParser:
                         choices=["bfloat16", "float32"],
                         help="activation/conv compute dtype on device")
     parser.add_argument("--model_axis", type=int, default=1,
-                        help="mesh model-axis size (data axis = n/model)")
+                        help="process-grid model-axis size: the head "
+                             "stacks split over M ranks (data axis = "
+                             "world / M)")
     parser.add_argument("--bn_warmup_batches", type=int, default=20,
                         help="BN running-stat warmup batches before epoch 0")
     parser.add_argument("--prefetch", type=int, default=4,

@@ -7,7 +7,9 @@
   process the layer keeps cuDNN's fused statistics kernel and folds the
   correction into the running-variance buffer around the call. Under a
   process group it normalizes with the statistics of the global batch
-  (``GlobalBatchNorm``), as GSPMD's BatchNorm does over a sharded batch.
+  (``GlobalBatchNorm``), as GSPMD's BatchNorm does over a sharded batch:
+  over the default group for the towers, over a grid's data group for
+  the heads (``models/heads.py``: the ranks that hold the same heads).
 * ``ConvBN``: Conv -> FlaxBatchNorm [-> ReLU] with explicit torch-style
   padding (``selavi_tpu/models/common.py::ConvBN``).
 * Initializers drawn from an explicit ``torch.Generator``: kaiming-normal
@@ -48,7 +50,8 @@ def uniform_fan_in_(t: torch.Tensor, fan_in: int, generator: torch.Generator):
 
 class GlobalBatchNorm(torch.autograd.Function):
     """Train-mode BatchNorm over channel dim 1 with the statistics of the
-    batch that all ranks of the process group hold together.
+    batch that all ranks of ``group`` (the default group when None) hold
+    together.
 
     Forward: the per-channel ``sum x``, ``sum x^2`` and the count, in fp32
     (fp64 for fp64 input), read from ``x`` as it is (bf16 stays bf16 in
@@ -67,7 +70,7 @@ class GlobalBatchNorm(torch.autograd.Function):
     the global mean loss."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, eps: float):
+    def forward(ctx, x, weight, bias, eps: float, group=None):
         c = x.shape[1]
         dims = [0, *range(2, x.ndim)]
         acc = torch.promote_types(x.dtype, torch.float32)
@@ -75,13 +78,13 @@ class GlobalBatchNorm(torch.autograd.Function):
             x.sum(dims, dtype=acc),
             torch.linalg.vector_norm(x, 2, dims, dtype=acc).square(),
             torch.full((1,), x.numel() // c, dtype=acc, device=x.device)])
-        tdist.all_reduce(stats)
+        tdist.all_reduce(stats, group=group)
         n = stats[-1]
         mean = stats[:c] / n
         var = (stats[c:2 * c] / n - mean * mean).clamp_min(0.0)
         y = F.batch_norm(x, mean, var, weight, bias, training=False,
                          eps=eps)
-        ctx.eps = eps
+        ctx.eps, ctx.group = eps, group
         ctx.save_for_backward(x, weight, mean, torch.rsqrt(var + eps), n)
         ctx.mark_non_differentiable(mean, var)
         return y, mean, var
@@ -94,8 +97,8 @@ class GlobalBatchNorm(torch.autograd.Function):
             [True, True, True])
         local = torch.cat([dbias, dweight]).to(mean.dtype)
         sums = local.clone()
-        tdist.all_reduce(sums)
-        if tdist.get_world_size() > 1:
+        tdist.all_reduce(sums, group=ctx.group)
+        if tdist.get_world_size(ctx.group) > 1:
             c = x.shape[1]
             shape = [1, c] + [1] * (x.ndim - 2)
             n_local = x.numel() // c
@@ -106,18 +109,19 @@ class GlobalBatchNorm(torch.autograd.Function):
             slope = k * invstd * d_dyxhat
             dx = dx.addcmul_(x, slope.view(shape)).add_(
                 (k * d_dy - slope * mean).view(shape))
-        return dx, dweight, dbias, None
+        return dx, dweight, dbias, None, None
 
 
 def flax_batch_norm(x, weight, bias, running_mean, running_var,
                     training: bool, momentum: float = BN_MOMENTUM,
-                    eps: float = BN_EPS):
+                    eps: float = BN_EPS, group=None):
     """BatchNorm over channel dim 1 with flax's running-stat update.
 
     Train mode normalizes with the biased batch variance (as both
     frameworks do) and updates ``running = momentum * running + (1 -
     momentum) * batch`` with the biased variance. Under a process group
-    the statistics are the global batch's (``GlobalBatchNorm``). Otherwise
+    the statistics are those of the batch of ``group``'s ranks (the
+    default group when None; ``GlobalBatchNorm``). Otherwise
     torch's kernel folds in the unbiased variance ``v * s`` (``s = n / (n
     - 1)``), so it updates a copy of the buffer scaled by ``s``, which is
     divided by ``s`` after: ``((1-m') * rv * s + m' * v * s) / s = (1-m') *
@@ -128,7 +132,7 @@ def flax_batch_norm(x, weight, bias, running_mean, running_var,
         return F.batch_norm(x, running_mean, running_var, weight, bias,
                             training=False, eps=eps)
     if tdist.is_initialized():
-        out, mean, var = GlobalBatchNorm.apply(x, weight, bias, eps)
+        out, mean, var = GlobalBatchNorm.apply(x, weight, bias, eps, group)
         with torch.no_grad():
             running_mean.mul_(momentum).add_(
                 mean.to(running_mean.dtype), alpha=1.0 - momentum)

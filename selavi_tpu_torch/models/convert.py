@@ -16,6 +16,10 @@ Layout transforms (the key walk follows
 * head-stack Dense kernels stay ``[H, I, O]`` (the port's stacked layout);
 * BatchNorm ``scale/bias`` -> ``weight/bias`` and batch stats
   ``mean/var`` -> ``running_mean/running_var``.
+
+A model whose head stacks hold a grid rank's slice of the heads
+(``models/heads.py``) is filled from the full ``[H, ...]`` leaves: each
+stack takes its heads' rows, after the same checks.
 """
 
 from __future__ import annotations
@@ -194,9 +198,9 @@ def _walk_finetune(w: _Walker, model, state) -> None:
 
 
 def load_jax_variables(model, params: dict, batch_stats: dict) -> None:
-    """Fill ``model`` (an ``AVModel``) from flax ``params``/``batch_stats``
-    trees of numpy arrays. Raises on a missing or extra key or a shape
-    mismatch on either side."""
+    """Fill ``model`` (an ``AVModel``, its head stacks whole or a slice)
+    from flax ``params``/``batch_stats`` trees of numpy arrays. Raises on a
+    missing or extra key or a shape mismatch on either side."""
     _load(model, _walk, params, batch_stats)
 
 
@@ -218,6 +222,17 @@ def _load(model, walk, params: dict, batch_stats: dict) -> None:
     unexpected = sorted(set(w.out) - set(state))
     if missing or unexpected:
         raise KeyError(f"missing {missing}, unexpected {unexpected}")
+    for name in ("heads_v", "heads_a"):
+        stack = getattr(model, name, None)
+        if stack is None or stack.local_heads == stack.headcount:
+            continue
+        own = slice(stack.first, stack.first + stack.local_heads)
+        for key, value in w.out.items():
+            # a full [H, ...] leaf gives the stack's rows; any other shape
+            # is reported below
+            if key.startswith(name + ".") and value.shape[:1] == (
+                    stack.headcount,):
+                w.out[key] = value[own]
     shapes = [f"{key}: model {tuple(state[key].shape)} vs flax {value.shape}"
               for key, value in w.out.items()
               if tuple(state[key].shape) != value.shape]

@@ -32,7 +32,6 @@ from selavi_tpu_torch.device import DeviceLike, resolve_device
 
 logger = logging.getLogger(__name__)
 
-HEAD_SHARDING_ITEM = "11b (head sharding over --model_axis)"
 TORCHRUN_VARS = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
                  "MASTER_PORT")
 

@@ -20,19 +20,26 @@
 
 Under a process group each rank encodes its stride of the dataset and
 ``parallel/mesh.py::gather_rows`` assembles the whole ``[N, D]`` on every
-rank. Every rank then makes the same host draws (the marginals, the
-matcher's seed) and solves every head on its own card; the audio heads
-take rank 0's permutation, and rank 0's labels, marginal state, costs and
-host RNG state replace every rank's at the end, so that all ranks go on
-alike whatever their solves' last bits. (JAX solves once, row-sharded over
-its mesh.)
+rank. The heads are solved by their owners (``grid``: with ``--model_axis
+M`` a rank owns ``H / M`` of them, at ``M = 1`` every rank all), and every
+rank makes the host draws of every head in the one-process order, so that
+the host RNG advances alike everywhere: the matcher's search runs on the
+owner in data row 0, which hands every rank the permutation and its RNG
+state; for the Gaussian marginals the owners' column sums are gathered
+over the model group and every rank runs ``get_marginal`` for every head.
+The owners' label columns, costs and iterations are gathered over the
+model group, and rank 0's labels, marginal state, costs and host RNG
+state replace every rank's at the end, so that all ranks go on alike
+whatever their solves' last bits. (JAX solves once, row-sharded over its
+mesh.)
 
 The module-level ``timings`` holds the last SK step's seconds: feature
 aggregation (``aggregate_s``, every group; under a process group
 ``gather_s``, the part of it that gathers the ranks' rows), modality
-matching (``match_s``) and the SK solves summed over heads
-(``solve_s``). On CUDA each boundary synchronises the device, so each
-span holds its own work.
+matching (``match_s``), the SK solves summed over the rank's heads
+(``solve_s``) and, with ``M > 1``, the exchange of column sums and label
+columns over the model group (``exchange_s``). On CUDA each boundary
+synchronises the device, so each span holds its own work.
 """
 
 from __future__ import annotations
@@ -153,12 +160,14 @@ def cluster(
     true_labels: Optional[np.ndarray] = None,
     writer=None,
     sk_counter: int = 0,
+    grid=None,
 ) -> tuple[np.ndarray, MarginalState, dict]:
     """One full re-clustering step.
 
     ``encode_fn(video, audio) -> (feat_v, feat_a)`` gives eval-mode pooled
-    features; ``head_logits_fn(feats [N,D], modality) -> [H, N, K]`` applies
-    the current heads (modality 'v' or 'a'). ``audio_heads`` (a
+    features; ``head_logits_fn(feats [N,D], modality) -> [h, N, K]`` applies
+    the current heads this rank owns (modality 'v' or 'a'; all ``H``
+    without a ``grid``, else ``grid.heads(H)``). ``audio_heads`` (a
     ``HeadStack``) is permuted in place when matching runs. ``writer`` (a
     TensorBoard ``SummaryWriter`` or None) gets the metrics. Returns
     ``(new_selflabels [N, H], marginal_state, metrics)``.
@@ -166,9 +175,16 @@ def cluster(
     t_start = time.time()
     timings.clear()
     timings.update(aggregate_s=0.0, match_s=0.0, solve_s=0.0)
+    sharded = grid is not None and grid.model_size > 1
+    if sharded:
+        timings["exchange_s"] = 0.0
+    rank = mesh.world()[0]
+    first, count = ((0, cfg.headcount) if grid is None
+                    else grid.heads(cfg.headcount))
+    owned = range(first, first + count)
     old_labels = selflabels.copy()
     new_labels = selflabels.copy()
-    costs, iters = [], []
+    costs, iters = {}, {}
 
     order_heads = list(range(cfg.headcount))
     np_rng.shuffle(order_heads)
@@ -201,8 +217,18 @@ def cluster(
             logits_v_all = head_logits_fn(ps_v, "v")
             logits_a_all = head_logits_fn(ps_a, "a")
             for head in heads_in_group:
-                perm = mesh.broadcast_object(match_order(
-                    logits_v_all[head], logits_a_all[head], rng=np_rng))
+                # the owner in data row 0 (rank = model index) searches,
+                # with the RNG state every rank holds; every rank goes on
+                # from its permutation and RNG state
+                src = 0 if grid is None else grid.owner(head, cfg.headcount)
+                searched = None
+                if rank == src:
+                    searched = (match_order(logits_v_all[head - first],
+                                            logits_a_all[head - first],
+                                            rng=np_rng),
+                                np_rng.bit_generator.state)
+                perm, np_rng.bit_generator.state = mesh.broadcast_object(
+                    searched, src)
                 audio_heads.permute_output(head, perm)
                 logger.info(
                     "matched head %d (perm fixed points: %d/%d)", head,
@@ -213,22 +239,39 @@ def cluster(
 
         all_logits_v = head_logits_fn(ps_v, "v")
         all_logits_a = head_logits_fn(ps_a, "a")
+
+        def log_ps(head):
+            return (torch.log_softmax(all_logits_v[head - first].float(), 1)
+                    + torch.log_softmax(all_logits_a[head - first].float(),
+                                        1))
+
+        mine = [head for head in heads_in_group if head in owned]
+        colsums = {}
+        if cfg.distribution != "default":
+            colsums = {head: torch.logsumexp(log_ps(head), dim=0).cpu()
+                       .numpy() for head in mine}
+            if sharded:
+                t0 = time.perf_counter()
+                for part in grid.gather_objects(colsums):
+                    colsums.update(part)
+                timings["exchange_s"] += time.perf_counter() - t0
+        # every head's marginal on every rank, in the group's order: the
+        # host RNG and the marginal state advance as in one process
+        log_rs = {}
         for head in heads_in_group:
-            log_ps = (torch.log_softmax(all_logits_v[head].float(), dim=1)
-                      + torch.log_softmax(all_logits_a[head].float(), dim=1))
-            colsum = None
-            if cfg.distribution != "default":
-                colsum = torch.logsumexp(log_ps, dim=0).cpu().numpy()
-            log_r, marginal_state = get_marginal(
-                marginal_state, colsum, head, cfg.headcount, n,
+            log_rs[head], marginal_state = get_marginal(
+                marginal_state, colsums.get(head), head, cfg.headcount, n,
                 cfg.num_clusters, distribution=cfg.distribution,
                 gauss_sd=cfg.gauss_sd, diff_dist_every=cfg.diff_dist_every,
                 diff_dist_per_head=cfg.diff_dist_per_head, rng=np_rng,
             )
+        for head in mine:
+            log_r = log_rs[head]
+            m = log_ps(head)
             _synchronize(device)
             t0 = time.perf_counter()
             res = sinkhorn_knopp(
-                log_ps, torch.from_numpy(log_r).to(log_ps.device),
+                m, torch.from_numpy(log_r).to(m.device),
                 lamb=cfg.lamb, tol=cfg.sk_tol, max_iters=cfg.sk_max_iters,
                 backend=cfg.sk_backend, m_bf16=cfg.sk_m_bf16,
             )
@@ -236,8 +279,8 @@ def cluster(
             solve_s = time.perf_counter() - t0
             timings["solve_s"] += solve_s
             new_labels[:, head] = head_labels
-            costs.append(res.cost)
-            iters.append(res.iters)
+            costs[head] = res.cost
+            iters[head] = res.iters
             # degeneracy watchdog, relative to the target marginals
             expected = n * np.exp(np.asarray(log_r, np.float64))
             supported = int((expected >= 1.0).sum())
@@ -257,6 +300,21 @@ def cluster(
                 )
             logger.info("head %d: SK cost %.3f, err %.3g, %d iters, %.2fs",
                         head, res.cost, res.err, res.iters, solve_s)
+
+    if sharded:
+        # every head's column, cost and iterations from its owner
+        t0 = time.perf_counter()
+        for part in grid.gather_objects(
+                {h: (new_labels[:, h], costs[h], iters[h]) for h in owned}):
+            for head, (column, cost, its) in part.items():
+                new_labels[:, head] = column
+                costs[head], iters[head] = cost, its
+        timings["exchange_s"] += time.perf_counter() - t0
+    # the one-process order of the solves
+    solved = [h for grp in range(cfg.ind_groups)
+              for h in order_heads[grp :: cfg.ind_groups]]
+    costs = [costs[h] for h in solved]
+    iters = [iters[h] for h in solved]
 
     # every rank goes on with rank 0's outcome
     mesh.broadcast_(torch.from_numpy(new_labels))  # in place

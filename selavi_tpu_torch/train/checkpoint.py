@@ -13,7 +13,11 @@ epoch is archived as ``{dump_checkpoints}/ckp-{epoch}.pth`` every
 
 Under data parallelism only rank 0 writes, the inner module's state (no
 ``module.`` prefix), so the file is a one-GPU run's; every rank restores
-it onto its own device (``restore_checkpoint``).
+it onto its own device (``restore_checkpoint``). With the heads split over
+a grid's model axis (``--model_axis M``) the file keeps that one layout:
+the ranks of data row 0 gather every head's parameters, BN statistics and
+momentum from their owners before rank 0 writes (``full_layout``), and
+each rank restores its own slice, so a run resumes under any ``M``.
 
 Unlike JAX arrays, the model's and the optimizer's tensors change in place
 at the next step, so ``save_checkpoint`` copies every tensor to host
@@ -78,6 +82,71 @@ def _to_host(obj):
     return obj
 
 
+HEAD_STACKS = ("heads_v", "heads_a")
+
+
+def _split_stacks(model) -> dict:
+    """``{name: HeadStack}`` of ``model``'s head stacks that hold a slice
+    of their heads."""
+    stacks = {name: getattr(model, name, None) for name in HEAD_STACKS}
+    return {name: stack for name, stack in stacks.items()
+            if stack is not None and stack.local_heads != stack.headcount}
+
+
+def _head_params(model, optimizer) -> dict:
+    """``{index in optimizer.state_dict(): HeadStack}`` of the head stacks'
+    parameters."""
+    owner = {id(p): stack for name, stack in _split_stacks(model).items()
+             for p in stack.parameters()}
+    params = [p for group in optimizer.param_groups for p in group["params"]]
+    return {i: owner[id(p)] for i, p in enumerate(params) if id(p) in owner}
+
+
+@torch.no_grad()
+def full_layout(model, optimizer, grid=None) -> tuple[dict, dict]:
+    """``(model state, optimizer state)`` in the one-process layout: with
+    the heads split over ``grid``'s model axis, every head stack's
+    tensors and momentum gathered over the model group to ``[H, ...]``.
+    A collective over the model group: every rank of a data row calls it
+    (the Trainer: data row 0)."""
+    model_state = model.state_dict()
+    optimizer_state = optimizer.state_dict()
+    if grid is None or grid.model_size == 1:
+        return model_state, optimizer_state
+    for name in _split_stacks(model):
+        for key in model_state:
+            if key.startswith(name + "."):
+                model_state[key] = grid.gather(model_state[key])
+    # state_dict() hands out the optimizer's own per-parameter dicts: new
+    # ones replace them here
+    per_param = optimizer_state["state"] = dict(optimizer_state["state"])
+    for i in _head_params(model, optimizer):
+        if i in per_param:
+            per_param[i] = {key: grid.gather(value)
+                            if torch.is_tensor(value) and value.ndim
+                            else value for key, value in per_param[i].items()}
+    return model_state, optimizer_state
+
+
+def own_slice(model, model_state: dict, optimizer=None,
+              optimizer_state: Optional[dict] = None) -> None:
+    """Cut the one-process layout's head tensors (and their momentum) in
+    place to the heads ``model``'s stacks hold; nothing for whole stacks."""
+    stacks = _split_stacks(model)
+    for name, stack in stacks.items():
+        own = slice(stack.first, stack.first + stack.local_heads)
+        for key in model_state:
+            if key.startswith(name + "."):
+                model_state[key] = model_state[key][own]
+    if optimizer is None or not stacks:
+        return
+    for i, stack in _head_params(model, optimizer).items():
+        own = slice(stack.first, stack.first + stack.local_heads)
+        for key, value in optimizer_state["state"].get(i, {}).items():
+            if torch.is_tensor(value) and value.ndim:
+                optimizer_state["state"][i][key] = value[own]
+
+
 def save_checkpoint(
     dump_path: str,
     model: torch.nn.Module,
@@ -90,13 +159,19 @@ def save_checkpoint(
     dump_checkpoints: Optional[str] = None,
     async_write: bool = False,
     resume_epoch: Optional[int] = None,
+    grid=None,
 ):
     """Write the checkpoint, atomically (``.tmp``, then ``os.replace``).
 
     With ``async_write`` only serialization and the disk write run on the
     background thread, over the host copy taken here; at most one write is
-    in flight."""
+    in flight. With the heads split over ``grid``'s model axis every rank
+    of data row 0 calls it: they gather the heads (``full_layout``), and
+    rank 0 alone writes."""
     global _pending_write
+    model_state, optimizer_state = full_layout(model, optimizer, grid)
+    if grid is not None and grid.rank != 0:
+        return
     t0 = time.perf_counter()
     if resume_epoch is None:
         resume_epoch = epoch + 1  # epoch completed
@@ -111,8 +186,8 @@ def save_checkpoint(
             np.array(dists, np.float64, copy=True))},
         "sk_counter": int(sl_state.sk_counter),
         "step": int(step),
-        "model": _to_host(model.state_dict()),
-        "optimizer": _to_host(optimizer.state_dict()),
+        "model": _to_host(model_state),
+        "optimizer": _to_host(optimizer_state),
     }
     record = {"epoch": epoch}
     timings.append(record)
@@ -155,8 +230,9 @@ def restore_checkpoint(
     """Load the model and optimizer in place from ``{dump_path}/
     checkpoint.pth`` (or from ``dump_path`` itself when it ends in
     ``.pth``), its tensors read onto the model's device (each rank its
-    own). Returns (sl_state, start_epoch, step); ``sl_state``, 0 and
-    ``step`` unchanged when there is no file."""
+    own; a model with split head stacks its heads' slice). Returns
+    (sl_state, start_epoch, step); ``sl_state``, 0 and ``step`` unchanged
+    when there is no file."""
     wait_for_pending_checkpoint()
     path = (dump_path if dump_path.endswith(".pth")
             else os.path.join(dump_path, CKPT_NAME))
@@ -165,6 +241,7 @@ def restore_checkpoint(
     logger.info("Found checkpoint at %s", path)
     payload = torch.load(path, map_location=next(model.parameters()).device,
                          weights_only=True)
+    own_slice(model, payload["model"], optimizer, payload["optimizer"])
     model.load_state_dict(payload["model"])
     optimizer.load_state_dict(payload["optimizer"])
     dists = payload["dist"]["dists"]
@@ -186,8 +263,9 @@ REFERENCE_IMPORT_ROUTE = (
 
 
 def load_model_parameters(model: torch.nn.Module, ckpt_path: str):
-    """Eval-tool loader: the model's weights and BN statistics only, from a
-    port ``checkpoint.pth`` or ``ckp-*.pth``. A JAX ``*.msgpack`` or a
+    """Eval-tool loader: the model's weights and BN statistics only (of
+    split head stacks their slice), from a port ``checkpoint.pth`` or
+    ``ckp-*.pth``. A JAX ``*.msgpack`` or a
     reference-layout ``.pth`` (no ``model`` entry holding the model's keys)
     raises ``NotImplementedError`` before any tensor is copied; the latter
     goes through ``train/torch_import.py`` instead."""
@@ -201,5 +279,6 @@ def load_model_parameters(model: torch.nn.Module, ckpt_path: str):
     state = payload.get("model") if isinstance(payload, dict) else None
     if not isinstance(state, dict) or set(state) != set(model.state_dict()):
         raise NotImplementedError(refusal)
+    own_slice(model, state)
     model.load_state_dict(state)
     return model

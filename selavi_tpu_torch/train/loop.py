@@ -35,10 +35,17 @@ JAX Trainer computes on a data mesh of one device a rank: each rank loads
 augmentations and dropout masks are the global batch's draws, the LR warms
 up to a multiplier of the world size, every rank holds the same SK labels
 (rank 0's, ``selflabel/engine.py``), rank 0 writes the checkpoints and the
-ranks agree on a preemption exit (``dist.StopVote``). Head sharding over
-``--model_axis`` (``UNPORTED_FLAGS``) is not ported yet: the flag makes the
-Trainer raise rather than train something other than what the JAX Trainer
-would.
+ranks agree on a preemption exit (``dist.StopVote``).
+
+With ``--model_axis M`` the ranks form JAX's ``('data', 'model')`` grid
+(``mesh.make_grid``; ``M`` must divide the world size and the headcount)
+and the head stacks are split over its model axis, as JAX's
+``state_shardings`` splits them: a rank holds, optimizes and checkpoints
+``H / M`` heads, runs them on its data row's gathered features, and
+solves their SK problems. The towers stay as at ``M = 1`` (each rank
+computes them on its own rows), and every number equals ``M = 1``'s on
+the same ranks; the checkpoint file is ``M = 1``'s, so a run resumes
+under any ``M``.
 """
 
 from __future__ import annotations
@@ -57,11 +64,7 @@ from selavi_tpu_torch.device import resolve_device
 from selavi_tpu_torch.models.av_model import load_model
 from selavi_tpu_torch.models.resnet_audio import AUDIO_ARCHS
 from selavi_tpu_torch.parallel import mesh
-from selavi_tpu_torch.parallel.dist import (
-    HEAD_SHARDING_ITEM,
-    StopVote,
-    sync_hosts,
-)
+from selavi_tpu_torch.parallel.dist import StopVote, sync_hosts
 from selavi_tpu_torch.selflabel.engine import SKConfig, cluster
 from selavi_tpu_torch.selflabel.schedule import (
     fast_forward_schedule,
@@ -87,29 +90,8 @@ LOG_EVERY = 50
 # (selavi_tpu/train/checkpoint.py::CKPT_NAME).
 JAX_CKPT_NAME = "checkpoint.msgpack"
 
-# Flags that the JAX Trainer, its dataset factory or its CLI read and this
-# Trainer does not implement: flag -> (default, the ROADMAP Queue 1 item
-# that ports it). Any other value raises NotImplementedError.
-UNPORTED_FLAGS = {
-    "model_axis": (1, HEAD_SHARDING_ITEM),
-}
-
-
-def refuse_unported_flags(args) -> None:
-    """Raise NotImplementedError naming the first flag in ``args`` that asks
-    for something this Trainer does not implement."""
-    for flag, (default, item) in UNPORTED_FLAGS.items():
-        value = getattr(args, flag, default)
-        if value != default:
-            raise NotImplementedError(
-                f"--{flag} {value!r} is not implemented by the port's "
-                f"Trainer (only the default {default!r}); it is ROADMAP "
-                f"Queue 1 item {item}")
-
-
 class Trainer:
     def __init__(self, args, dataset, device=None, writer=None):
-        refuse_unported_flags(args)
         self.args = args
         self.dataset = dataset
         self.writer = writer  # a TensorBoard SummaryWriter, or None
@@ -119,6 +101,9 @@ class Trainer:
             if getattr(args, "compute_dtype", "float32") == "bfloat16"
             else torch.float32
         )
+        # None in one process; raises unless M divides world and headcount
+        self.grid = mesh.make_grid(getattr(args, "model_axis", 1),
+                                   args.headcount)
         self.model = load_model(
             vid_base_arch=args.vid_base_arch,
             aud_base_arch=args.aud_base_arch,
@@ -132,17 +117,24 @@ class Trainer:
             device=self.device,
             # the stem takes the example's audio channels: 2 for dual_data
             audio_channels=example_shapes(args, dataset)[1][-1],
+            grid=self.grid,
         )
-        self.rank, self.world_size, group = mesh.world()
+        self.rank, self.world_size, _ = mesh.world()
         self.shard = (self.rank, self.world_size)
         # the model's forward in the train step
         self.net = self.model
-        if group is not None:
-            self.net = mesh.data_parallel(self.model, self.device)
+        if self.grid is not None:
+            self.net = mesh.grid_parallel(self.model, self.grid, self.device)
             logger.info("data parallel: rank %d of %d, backend %s, %s with "
                         "global BatchNorm", self.rank, self.world_size,
                         torch.distributed.get_backend(),
                         type(self.net).__name__)
+            first, count = self.grid.heads(args.headcount)
+            logger.info("grid [%d, %d]: data row %d, model column %d, heads "
+                        "%d-%d of %d", self.grid.data_size,
+                        self.grid.model_size, self.grid.data_index,
+                        self.grid.model_index, first, first + count - 1,
+                        args.headcount)
         # --batch_size per process: the JAX Trainer's batch_size *
         # n_devices // n_proc with one device a process
         self.loader = self._loader(
@@ -159,7 +151,7 @@ class Trainer:
             self.net, self.optimizer, colorjitter=args.colorjitter,
             grayscale=args.use_grayscale, compute_dtype=self.compute_dtype,
             audio_cfg=self.audio_cfg, video_clips=self.video_clips,
-            shard=self.shard,
+            shard=self.shard, grid=self.grid,
         )
         self.stop_vote = StopVote()
         n = len(dataset)
@@ -295,6 +287,7 @@ class Trainer:
             true_labels=self.true_labels,
             writer=self.writer,
             sk_counter=self.sl_state.sk_counter,
+            grid=self.grid,
         )
         self.sl_state.selflabels = labels
         self.sl_state.marginals = marginals
@@ -336,7 +329,7 @@ class Trainer:
             batch_time.update(time.time() - end)
             end = time.time()
             if it % LOG_EVERY == 0:
-                loss = float(mesh.mean_over_ranks(metrics["loss"]))
+                loss = self._global_loss(metrics["loss"])
                 # weighted by the global batch, as the JAX Trainer's
                 losses.update(loss, batch["video"].shape[0] * self.world_size)
                 self.history.append({"epoch": epoch, "iter": it,
@@ -363,16 +356,20 @@ class Trainer:
                 logger.warning("preemption checkpoint written; exiting")
                 raise SystemExit(0)
         # the last step's loss, weight 1, as the JAX Trainer's epoch loss
-        losses.update(float(mesh.mean_over_ranks(metrics["loss"])), 1)
+        losses.update(self._global_loss(metrics["loss"]), 1)
         return losses.avg
+
+    def _global_loss(self, loss: torch.Tensor) -> float:
+        """The global batch's loss from this rank's (a host sync)."""
+        return float(loss if self.grid is None else self.grid.loss(loss))
 
     def checkpoint(self, epoch: int, completed: bool = True) -> None:
         """Rank 0 writes the inner module's state (the file of a one-GPU
-        run); then the ranks meet."""
+        run, every head gathered by data row 0); then the ranks meet."""
         # one source for the resume point, shared with the file
         resume_epoch = epoch + 1 if completed else epoch
         self.sl_state.epoch = resume_epoch
-        if self.rank == 0:
+        if self.grid is None or self.grid.data_index == 0:
             save_checkpoint(
                 self.args.dump_path, self.model, self.optimizer,
                 self.sl_state, epoch, step=self.step,
@@ -380,7 +377,7 @@ class Trainer:
                 total_epochs=self.args.epochs,
                 dump_checkpoints=getattr(self.args, "dump_checkpoints", None),
                 async_write=self.args.async_checkpoint,
-                resume_epoch=resume_epoch,
+                resume_epoch=resume_epoch, grid=self.grid,
             )
         sync_hosts()
 

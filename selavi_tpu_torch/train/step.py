@@ -18,6 +18,15 @@ flips, jitters and dropout masks of the global batch from the generator
 that all ranks seed alike, and keeps its rows ``rank::world``: a
 ``world``-rank step sees the draws of the one-rank step at ``world`` times
 the batch. ``model`` may be a ``DistributedDataParallel`` wrapper.
+
+On a process grid with ``M > 1`` (``grid``, ``parallel/mesh.py``) a rank's
+logits are its ``H / M`` heads' on its data row's gathered rows: the step
+gathers the rows' labels over the model group and takes the owned heads'
+columns, and its CE sums the owned heads and divides by the global ``H``,
+so that the ranks' losses summed over a data row make the row's loss.
+``model`` is then ``mesh.GridParallel``: the heads' gradients are averaged
+over the data group, the towers' over all ranks (the gather's backward
+scales their gradient by ``M``).
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ import torch.nn.functional as F
 
 from selavi_tpu_torch.ops.logmel import logfbank_batch
 from selavi_tpu_torch.ops.preprocess import augment_video_batch, normalize_video
+from selavi_tpu_torch.parallel import mesh
 
 
 def autocast(device: torch.device, compute_dtype: torch.dtype):
@@ -61,21 +71,39 @@ def prepare_audio(audio: torch.Tensor, dtype: torch.dtype = torch.float32,
     return audio.to(dtype)
 
 
-def multihead_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean over heads of CE(logits[h], labels[:, h]); logits [H, B, K],
-    labels [B, H] int. Computed in fp32."""
+def multihead_ce(logits: torch.Tensor, labels: torch.Tensor,
+                 headcount: Optional[int] = None) -> torch.Tensor:
+    """Sum over heads of CE(logits[h], labels[:, h]) divided by
+    ``headcount`` (by default the logits' own ``h``: their mean); logits
+    [h, B, K], labels [B, h] int. Computed in fp32, or fp64 for fp64
+    logits, so that an fp64 run's loss and gradients do not depend on how
+    the heads and rows are grouped to the last bits of fp32."""
     h, b, k = logits.shape
-    return F.cross_entropy(logits.float().reshape(h * b, k),
-                           labels.t().reshape(h * b).long())
+    dtype = torch.promote_types(logits.dtype, torch.float32)
+    ce = F.cross_entropy(logits.to(dtype).reshape(h * b, k),
+                         labels.t().reshape(h * b).long())
+    return ce if headcount in (None, h) else ce * (h / headcount)
+
+
+def head_labels(labels: torch.Tensor, grid=None) -> torch.Tensor:
+    """``labels [B, H]`` of this rank's rows as its logits cover them: on a
+    grid with ``M > 1`` its data row's rows (gathered over the model group
+    in ``Grid.gather``'s order) at the owned heads' columns."""
+    if grid is None or grid.model_size == 1:
+        return labels
+    first, count = grid.heads(labels.shape[1])
+    rows = mesh.gather_rows(labels, group=grid.model_group)
+    return rows[:, first:first + count]
 
 
 def make_train_step(model, optimizer, colorjitter: bool = False,
                     grayscale: bool = False,
                     compute_dtype: torch.dtype = torch.float32,
                     audio_cfg: Optional[dict] = None, video_clips: int = 1,
-                    shard: tuple[int, int] = (0, 1)):
+                    shard: tuple[int, int] = (0, 1), grid=None):
     """Returns ``step(batch, labels, generator) -> metrics`` (0-dim tensors,
-    not synced; the loss is this rank's). ``batch['video']`` uint8
+    not synced; the loss is this rank's, on a grid over its heads: see the
+    module docstring). ``batch['video']`` uint8
     [B,T,H,W,3] and ``batch['audio']`` fp32 [B,F,T,1] (or
     ``batch['audio_pcm']`` [B,S], turned into spectrograms by
     ``prepare_audio``) on the device; ``labels`` [B, H]. ``video_clips`` >
@@ -93,11 +121,13 @@ def make_train_step(model, optimizer, colorjitter: bool = False,
                                     shard=shard)
         audio = prepare_audio(batch.get("audio", batch.get("audio_pcm")),
                               dtype, audio_cfg)
+        headcount = labels.shape[1]
+        labels = head_labels(labels, grid)
         with autocast(device, compute_dtype):
             logits_v, logits_a = model(video, audio, generator=generator,
                                        shard=shard)
-            loss_v = multihead_ce(logits_v, labels)
-            loss_a = multihead_ce(logits_a, labels)
+            loss_v = multihead_ce(logits_v, labels, headcount)
+            loss_a = multihead_ce(logits_a, labels, headcount)
             loss = 0.5 * loss_v + 0.5 * loss_a
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
@@ -113,8 +143,8 @@ def bn_warmup_step(model, video_u8, audio, generator,
                    compute_dtype: torch.dtype = torch.float32,
                    audio_cfg: Optional[dict] = None, video_clips: int = 1,
                    shard: tuple[int, int] = (0, 1)):
-    """Forward-only train-mode pass (heads included) that updates the BN
-    running statistics."""
+    """Forward-only train-mode pass (heads included, on a grid the owned
+    heads on the gathered rows) that updates the BN running statistics."""
     device = video_u8.device
     model.train()
     video = augment_video_batch(video_u8, generator, flip=True,
@@ -166,7 +196,8 @@ def encode(model, video_u8, audio, generator=None, augment: bool = True,
 @torch.no_grad()
 def head_logits(model, feats, modality: str,
                 compute_dtype: torch.dtype = torch.float32):
-    """``feats [N, D] -> [H, N, K]`` through every head, eval mode."""
+    """``feats [N, D] -> [h, N, K]`` through every head the model holds
+    (on a grid its owned heads), eval mode."""
     model.eval()
     with autocast(feats.device, compute_dtype):
         heads = model.video_heads if modality == "v" else model.audio_heads

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import signal
 import subprocess
 import sys
@@ -152,6 +153,134 @@ def case_step(rank, world, tmp, dtype, use_mlp, colorjitter, **_):
                    torch.Generator().manual_seed(int(data["seed"])))
     return {"state": {k: v.clone() for k, v in model.state_dict().items()},
             "loss": float(metrics["loss"])}
+
+
+def _fingerprint(tensors) -> dict:
+    """An fp64 (sum, sum of squares) of each tensor: equal bits give equal
+    fingerprints."""
+    return {k: (float(v.double().sum()), float(v.double().square().sum()))
+            for k, v in tensors.items()}
+
+
+def _max_diff(got, ref) -> float:
+    """The largest ``|got - ref| / (max |ref| + |ref|)`` in fp64: within
+    ``rtol`` it is ``tests/test_torch_dist.py::_close(got, ref, rtol)``."""
+    got, ref = got.double(), ref.double()
+    scale = max(float(ref.abs().max()), 1e-12)
+    return float(((got - ref).abs() / (scale + ref.abs())).max())
+
+
+def _distance(ref32, ref64) -> dict:
+    """``_max_diff`` of each tensor of an fp32 step's ``(before, full,
+    momentum)`` from the fp64 step's, keyed as ``vs_m1``."""
+    before32, full32, momentum32 = ref32
+    before64, full64, momentum64 = ref64
+    out = {}
+    for key, value in full64.items():
+        out[key] = (_max_diff(full32[key], value) if "running" in key
+                    else _max_diff(full32[key] - before32[key],
+                                   value - before64[key]))
+    for key, value in momentum64.items():
+        out[f"momentum:{key}"] = _max_diff(momentum32[key], value)
+    return out
+
+
+def case_grid_steps(rank, world, tmp, configs, **_):
+    """One train step of the port on this rank's rows of the global batch
+    in ``step_inputs_{inputs}.npz`` for each ``[name, model_axis, dtype,
+    use_mlp, colorjitter, inputs]`` of ``configs``, from the numpy weights of
+    ``step_weights_{mlp|linear}.pt``, each from the same weights. Returns,
+    per config, the global loss, the heads this rank holds and its
+    optimizer's momentum shapes and a fingerprint of its towers. Rank 0
+    also takes the state in the one-process layout
+    (``checkpoint.full_layout``) with the momentum by parameter name: for
+    a config ``m2_x`` after ``m1_x`` it returns ``vs_m1``, each tensor's
+    ``_max_diff`` from ``m1_x``'s (of the step's change for parameters, of
+    the values for the BN statistics and the momentum), and for
+    ``m2_float32`` after ``m1_float64`` also the distances of the fp32
+    ``M = 1`` step (``fp32_error``) and of itself (``vs_fp64``) from the
+    fp64 ``M = 1`` step;
+    for any other config the state itself (``full``, ``momentum``)."""
+    import numpy as np
+    import torch
+
+    from selavi_tpu_torch.models.av_model import load_model
+    from selavi_tpu_torch.models.convert import load_jax_variables
+    from selavi_tpu_torch.parallel import mesh
+    from selavi_tpu_torch.train.checkpoint import full_layout
+    from selavi_tpu_torch.train.optim import make_optimizer, set_lr
+    from selavi_tpu_torch.train.step import make_train_step
+
+    weights, kept, out = {}, {}, {}
+    rows = slice(rank, None, world)
+    for name, model_axis, dtype, use_mlp, colorjitter, inputs in configs:
+        data = np.load(os.path.join(tmp, f"step_inputs_{inputs}.npz"))
+        kind = "mlp" if use_mlp else "linear"
+        if kind not in weights:
+            weights[kind] = torch.load(
+                os.path.join(tmp, f"step_weights_{kind}.pt"),
+                weights_only=False)
+        tdtype = getattr(torch, dtype)
+        grid = mesh.make_grid(model_axis, int(data["heads"]))
+        model = load_model(headcount=int(data["heads"]),
+                           num_classes=int(data["k"]), use_mlp=use_mlp,
+                           device="cpu", grid=grid)
+        load_jax_variables(model, *weights[kind])
+        model = model.to(tdtype)
+        before = {k: v.clone() for k, v in model.state_dict().items()}
+        opt = make_optimizer(model, float(data["lr"]), float(data["wd"]))
+        set_lr(opt, float(data["lr"]))
+        net = mesh.grid_parallel(model, grid, torch.device("cpu"))
+        step = make_train_step(net, opt, colorjitter=colorjitter,
+                               compute_dtype=tdtype, shard=(rank, world),
+                               grid=grid)
+        metrics = step({"video": torch.from_numpy(data["video"][rows]),
+                        "audio": torch.from_numpy(data["audio"][rows])},
+                       torch.from_numpy(data["labels"][rows]).long(),
+                       torch.Generator().manual_seed(int(data["seed"])))
+        params = dict(model.named_parameters())
+        state = model.state_dict()
+        result = out[name] = {
+            "loss": float(grid.loss(metrics["loss"])),
+            "heads": {k: v.clone() for k, v in state.items()
+                      if k.startswith("heads_")},
+            "moment_shapes": {
+                n: tuple(opt.state[p]["momentum_buffer"].shape)
+                for n, p in params.items() if n.startswith("heads_")},
+            "towers": _fingerprint({k: v for k, v in state.items()
+                                    if not k.startswith("heads_")}),
+            "net": type(net).__name__,
+        }
+        if grid.data_index != 0:
+            continue
+        full, opt_state = full_layout(model, opt, grid)  # data row 0
+        if rank != 0:
+            continue
+        names = list(params)
+        momentum = {names[i]: s["momentum_buffer"]
+                    for i, s in opt_state["state"].items()}
+        ref = kept.get(name.replace("m2_", "m1_"))
+        if name.startswith("m1_"):
+            kept[name] = (before, full, momentum)
+        elif ref is None:
+            result.update(full=full, momentum=momentum)
+        else:
+            ref_before, ref_full, ref_momentum = ref
+            diffs = {"keys": (sorted(full) == sorted(ref_full),
+                              sorted(momentum) == sorted(ref_momentum))}
+            for key, value in ref_full.items():
+                diffs[key] = (_max_diff(full[key], value) if "running" in key
+                              else _max_diff(full[key] - ref_before[key],
+                                             value - ref_before[key]))
+            for key, value in ref_momentum.items():
+                diffs[f"momentum:{key}"] = _max_diff(momentum[key], value)
+            result["vs_m1"] = diffs
+            if name == "m2_float32" and "m1_float64" in kept:
+                # both fp32 steps' distances from the fp64 M = 1 step
+                result["fp32_error"] = _distance(ref, kept["m1_float64"])
+                result["vs_fp64"] = _distance((ref_before, full, momentum),
+                                              kept["m1_float64"])
+    return out
 
 
 def _tiny_args(extra):
@@ -336,8 +465,113 @@ EVAL_ARGS = {
         "--weights_path None --compute_dtype float32"),
 }
 
+def case_grid_cli(rank, world, tmp, extra, **_):
+    """One BN-warmup batch of a Trainer over TINY plus ``extra`` at
+    ``--model_axis`` 1 and 2 (``warmup``: each running statistic's
+    ``_max_diff`` between them, the heads gathered); the CLI over the same
+    at ``--model_axis`` 1 and then 2, each on its own dump path; then each
+    file restored into a Trainer at the other ``M`` and written again
+    under ``{tmp}/cross{M}``. Returns, per ``M``, what every rank must
+    share after the run (labels, marginals, host RNG state, the audio
+    permutations, SK metrics), the heads it solved and holds, and whether
+    the crossed restore equals the file."""
+    import numpy as np
+    import torch
+
+    from selavi_tpu_torch.models.heads import HeadStack
+    from selavi_tpu_torch.selflabel import engine
+    from selavi_tpu_torch.train.checkpoint import (
+        CKPT_NAME,
+        restore_checkpoint,
+        wait_for_pending_checkpoint,
+    )
+    from selavi_tpu_torch.train.loop import Trainer
+
+    perms, solved = [], []
+    permute, solve = HeadStack.permute_output, engine.sinkhorn_knopp
+
+    def recorded_permute(stack, head, perm):
+        perms.append((head, [int(i) for i in perm]))
+        return permute(stack, head, perm)
+
+    def recorded_solve(m, *a, **kw):
+        solved.append(m.shape)
+        return solve(m, *a, **kw)
+
+    from selavi_tpu_torch.data.factory import build_dataset
+    from selavi_tpu_torch.train.checkpoint import full_layout
+
+    # the BN warmup at each M: the running statistics, heads gathered
+    warm = {}
+    for m in (1, 2):
+        args = _tiny_args(f"{extra} --model_axis {m} --dump_path "
+                          f"{tmp}/warm{m}")
+        trainer = Trainer(args, build_dataset(args), device="cpu")
+        trainer.warmup_batchnorm(batches=1)
+        warm[m] = {k: v for k, v in full_layout(
+            trainer.model, trainer.optimizer, trainer.grid)[0].items()
+            if "running" in k}
+        del trainer
+    out = {"warmup": {k: _max_diff(warm[2][k], v)
+                      for k, v in warm[1].items()}}
+    HeadStack.permute_output = recorded_permute
+    engine.sinkhorn_knopp = recorded_solve
+    try:
+        for m in (1, 2):
+            perms.clear()
+            solved.clear()
+            argv = (f"{TINY} {extra} --model_axis {m} --dump_path "
+                    f"{tmp}/dump{m}").split()
+            code, trainer, _ = _run_cli(argv)
+            wait_for_pending_checkpoint()
+            if rank == 0:  # the epoch's archived copy: compared nowhere
+                shutil.rmtree(f"{tmp}/dump{m}/checkpoints")
+            state = trainer.model.state_dict()
+            out[m] = {
+                "exit": code,
+                "labels": trainer.sl_state.selflabels.copy(),
+                "dists": trainer.sl_state.marginals.dists.copy(),
+                "rng": trainer.np_rng.bit_generator.state,
+                "perms": list(perms),
+                "solves": len(solved),
+                "sk": [{k: v for k, v in h.items() if k != "sk_time"}
+                       for h in trainer.history if "sk_cost" in h],
+                "head_shapes": {k: tuple(v.shape) for k, v in state.items()
+                                if k.startswith("heads_")},
+                "net": type(trainer.net).__name__,
+            }
+            del trainer
+        # each file into a Trainer at the other M, and written again
+        for m, other in ((1, 2), (2, 1)):
+            args = _tiny_args(f"{extra} --model_axis {other} --dump_path "
+                              f"{tmp}/cross{other}")
+            trainer = Trainer(args, build_dataset(args), device="cpu")
+            path = os.path.join(tmp, f"dump{m}", CKPT_NAME)
+            sl, epoch, step = restore_checkpoint(
+                path, trainer.model, trainer.optimizer, trainer.sl_state)
+            trainer.sl_state, trainer.step = sl, step
+            saved = torch.load(path, map_location="cpu", weights_only=True)
+            first, count = (trainer.grid.heads(2) if trainer.grid
+                            else (0, 2))
+            own = slice(first, first + count)
+            equal = all(
+                torch.equal(v, saved["model"][k][own]
+                            if k.startswith("heads_") else saved["model"][k])
+                for k, v in trainer.model.state_dict().items())
+            trainer.checkpoint(epoch - 1)
+            wait_for_pending_checkpoint()
+            out[f"cross{other}"] = {"restored_equal": equal,
+                                    "epoch": epoch, "step": step}
+            del trainer
+    finally:
+        HeadStack.permute_output = permute
+        engine.sinkhorn_knopp = solve
+    return out
+
+
 CASES = {"bn": case_bn, "step": case_step, "lr": case_lr, "cli": case_cli,
-         "eval": case_eval, "ft_step": case_ft_step}
+         "eval": case_eval, "ft_step": case_ft_step,
+         "grid_steps": case_grid_steps, "grid_cli": case_grid_cli}
 
 
 def main():

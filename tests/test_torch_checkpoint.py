@@ -29,6 +29,7 @@ import jax.numpy as jnp
 import optax
 from flax import serialization
 
+from _torch_tmp import tmp_path  # noqa: F401
 from selavi_tpu.models import load_model as jax_load_model
 from selavi_tpu.selflabel.marginals import MarginalState as JaxMarginalState
 from selavi_tpu.selflabel.schedule import (

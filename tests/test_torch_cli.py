@@ -25,6 +25,7 @@ import socket
 import pytest
 import torch
 
+from _torch_tmp import tmp_path  # noqa: F401
 from selavi_tpu.utils.logger import PDStats as JaxPDStats
 from selavi_tpu.utils.logger import create_logger as jax_create_logger
 from selavi_tpu.utils.meters import AverageMeter as JaxAverageMeter

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_tmp import tmp_path  # noqa: F401
 from selavi_tpu.eval import cluster_vis as jax_cv
 from selavi_tpu_torch.cli import cluster_vis as cli
 from selavi_tpu_torch.data.factory import build_dataset

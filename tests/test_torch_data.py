@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_tmp import tmp_path  # noqa: F401
 from selavi_tpu import native as jax_native
 from selavi_tpu_torch import native as port_native
 from selavi_tpu.data import audio as jaudio
@@ -313,7 +314,8 @@ def media(tmp_path_factory):
          "--frame_size", "64", "--duration", "1.5", "--aud_sample_rate",
          str(SR), "--seed", "4"],
         check=True, capture_output=True, timeout=300)
-    return root
+    yield root
+    shutil.rmtree(root, ignore_errors=True)
 
 
 def test_cv2_decode_matches_jax(media):

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_tmp import tmp_path  # noqa: F401
 from selavi_tpu_torch.cli import main as cli_main
 from selavi_tpu_torch.cli import pack_dataset
 from selavi_tpu_torch.parallel import dist

@@ -34,6 +34,7 @@ import torch
 from jax.sharding import NamedSharding, PartitionSpec as P
 
 from _torch_dist import Ranks, spawn
+from _torch_tmp import tmp_path  # noqa: F401
 from selavi_tpu.data.loader import DataLoader as JaxDataLoader
 from selavi_tpu.models import load_model as jax_load_model
 from selavi_tpu.parallel.mesh import data_sharding, make_mesh
@@ -121,7 +122,8 @@ def bn_runs(tmp_path_factory):
             inputs[(name, dtype)] = tuple(
                 t.to(getattr(torch, dtype)) for t in (x, w, b, r))
     torch.save(inputs, tmp / "bn_inputs.pt")
-    return inputs, spawn("bn", 2, tmp, timeout=60)
+    yield inputs, spawn("bn", 2, tmp, timeout=60)
+    shutil.rmtree(tmp, ignore_errors=True)
 
 
 @pytest.mark.parametrize("dtype,rtol", [("float64", 1e-9), ("float32", 1e-5)])
@@ -239,7 +241,9 @@ def jax_mesh_runs(tmp_path_factory):
         out[dtype] = (_jax_mesh_step(params, bs, video, audio, labels,
                                      dtype), _step_results(ranks, tmp),
                       before.to(getattr(torch, dtype)).state_dict())
-    return out
+    yield out
+    for _, tmp in started.values():
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
@@ -352,7 +356,8 @@ def cli_run(tmp_path_factory):
     files = sorted(os.listdir(dump))
     events = glob.glob(str(dump / "events.out.tfevents.*"))
     shutil.rmtree(dump)
-    return ranks, saved, files, events
+    yield ranks, saved, files, events
+    shutil.rmtree(tmp, ignore_errors=True)
 
 
 def test_two_rank_epoch_with_sk_keeps_the_ranks_equal(cli_run):

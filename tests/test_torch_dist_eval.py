@@ -10,12 +10,14 @@ dropout mask drawn for the global batch and its final BatchNorm global.
 """
 
 import pickle
+import shutil
 
 import numpy as np
 import pytest
 import torch
 
 from _torch_dist import Ranks, finetune_step
+from _torch_tmp import tmp_path  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -34,7 +36,9 @@ def eval_runs(tmp_path_factory):
         results = ranks.results(timeout=150)
         with open(tmp / "ps.pkl", "rb") as f:
             out[world] = (results, pickle.load(f))
-    return out
+    yield out
+    for tmp, in runs.values():
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def test_get_clusters_two_ranks_equal_one(eval_runs):

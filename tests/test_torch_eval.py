@@ -36,6 +36,7 @@ from sklearn.metrics.cluster._expected_mutual_info_fast import (
     expected_mutual_information,
 )
 
+from _torch_tmp import tmp_path  # noqa: F401
 from selavi_tpu.data.factory import build_dataset as jax_build_dataset
 from selavi_tpu.data.loader import DataLoader as JaxDataLoader
 from selavi_tpu.eval import clustering as jax_clustering

@@ -9,6 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from _torch_tmp import tmp_path  # noqa: F401
 from selavi_tpu.models import load_model
 from selavi_tpu.train.torch_export import (
     export_heads,

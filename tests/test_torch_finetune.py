@@ -36,6 +36,7 @@ import logging
 import math
 import os
 import pickle
+import shutil
 import subprocess
 import sys
 
@@ -47,6 +48,7 @@ import torch
 from flax import serialization
 
 import finetune_video as jax_cli
+from _torch_tmp import tmp_path  # noqa: F401
 from selavi_tpu.eval import finetune as jax_ft
 from selavi_tpu.train import optim as jax_optim
 from selavi_tpu_torch.cli import finetune_video
@@ -492,7 +494,8 @@ def trainer_checkpoint(tmp_path_factory):
                               sk_counter=0, epoch=0)
     save_checkpoint(str(dump), model, torch.optim.SGD(model.parameters(),
                                                       lr=0.1), sl_state, 0)
-    return dump / "checkpoint.pth", model
+    yield dump / "checkpoint.pth", model
+    shutil.rmtree(dump, ignore_errors=True)
 
 
 def test_load_pretrained_tower_from_a_trainer_checkpoint(trainer_checkpoint):
@@ -546,7 +549,8 @@ def ucf_tree(tmp_path_factory):
          "--output", str(root), "--layout", "ucf", "--num_videos", "6",
          "--num_classes", "2", "--frame_size", "128", "--duration", "1.0"],
         check=True, capture_output=True, timeout=300)
-    return root
+    yield root
+    shutil.rmtree(root, ignore_errors=True)
 
 
 @pytest.mark.parametrize("dataset", ["synthetic", "ucf101"])

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_tmp import tmp_path  # noqa: F401
 from selavi_tpu.data import synthetic as jsynthetic
 from selavi_tpu.data.loader import DataLoader as JaxLoader
 from selavi_tpu.models import load_model as jax_load_model

@@ -14,10 +14,13 @@
   ``torch_export`` wrote gives the same dump as on the port checkpoint.
 """
 
+import shutil
+
 import numpy as np
 import pytest
 import torch
 
+from _torch_tmp import tmp_path  # noqa: F401
 from selavi_tpu.train.torch_import import (
     import_reference_checkpoint as jax_import,
 )
@@ -109,7 +112,8 @@ def exported(tmp_path_factory):
     ckpt = _write_checkpoint(dump, model)
     pth = dump / "reference.pth"
     torch_export.main([str(ckpt), str(pth)])
-    return ckpt, pth
+    yield ckpt, pth
+    shutil.rmtree(dump, ignore_errors=True)
 
 
 MISFITS = {

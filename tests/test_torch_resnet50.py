@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_tmp import tmp_path  # noqa: F401
 from selavi_tpu.train.torch_export import (
     export_reference_state_dict as jax_export_reference_state_dict,
 )

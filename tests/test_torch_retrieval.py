@@ -19,6 +19,7 @@
 
 import importlib
 import pickle
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -28,6 +29,7 @@ import torch
 from sklearn.neighbors import NearestNeighbors
 
 import video_retrieval as jax_cli
+from _torch_tmp import tmp_path  # noqa: F401
 from selavi_tpu.data.loader import DataLoader as JaxDataLoader
 from selavi_tpu.data.synthetic import SyntheticAVDataset as JaxSynthetic
 from selavi_tpu.models import load_model as jax_load_model
@@ -76,8 +78,9 @@ def weights(tmp_path_factory):
     load_jax_variables(model, params, bs)
     path = tmp_path_factory.mktemp("weights") / "checkpoint.pth"
     torch.save({"model": model.state_dict()}, path)
-    return {"jmodel": jmodel, "params": params, "bs": bs, "model": model,
-            "path": str(path)}
+    yield {"jmodel": jmodel, "params": params, "bs": bs, "model": model,
+           "path": str(path)}
+    shutil.rmtree(path.parent, ignore_errors=True)
 
 
 def _clips(seed):

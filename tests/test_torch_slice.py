@@ -12,13 +12,14 @@ import pytest
 import torch
 
 import selavi_tpu_torch
+from _torch_tmp import tmp_path  # noqa: F401
 from selavi_tpu_torch.config import parse_arguments
 from selavi_tpu_torch.data.synthetic import SyntheticAVDataset
 from selavi_tpu_torch.models.av_model import load_model
 from selavi_tpu_torch.ops import sinkhorn_fused
 from selavi_tpu.utils.meters import AverageMeter
 from selavi_tpu_torch.train import loop
-from selavi_tpu_torch.train.loop import UNPORTED_FLAGS, Trainer
+from selavi_tpu_torch.train.loop import Trainer
 
 torch.set_num_threads(1)
 
@@ -73,17 +74,12 @@ def test_trainer_fit_runs_the_slice_on_cpu(monkeypatch, tmp_path):
     assert sinkhorn_fused.launches == 0  # the CPU runs the plain version
 
 
-# A non-default value of every flag in UNPORTED_FLAGS.
-UNPORTED_VALUES = {"model_axis": "2"}
-
-
-@pytest.mark.parametrize("flag", sorted(UNPORTED_VALUES))
-def test_trainer_refuses_unported_flags(flag):
-    assert set(UNPORTED_VALUES) == set(UNPORTED_FLAGS)
+def test_trainer_refuses_a_model_axis_that_does_not_divide_the_headcount():
+    """JAX's ``state_shardings`` refuses it; the port names both numbers."""
     args = parse_arguments().parse_args(
-        TINY.split() + [f"--{flag}", UNPORTED_VALUES[flag]])
-    with pytest.raises(NotImplementedError,
-                       match=f"--{flag} .*ROADMAP Queue 1 item"):
+        TINY.split() + ["--model_axis", "3", "--headcount", "10"])
+    with pytest.raises(ValueError,
+                       match="--model_axis 3 must divide --headcount 10"):
         Trainer(args, _dataset(args), device="cpu")
 
 

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_tmp import tmp_path  # noqa: F401
 from selavi_tpu.config import parse_arguments as jax_parse_arguments
 from selavi_tpu.data.synthetic import SyntheticAVDataset as JaxSynthetic
 from selavi_tpu.train.loop import Trainer as JaxTrainer
