@@ -1,0 +1,8 @@
+"""The window's seconds over the whole SK steps it holds (the host
+clock)."""
+
+
+def read(run):
+    if run.workload["driver"] != "selflabel" or not run.units:
+        return None
+    return run.window_s / run.units
