@@ -55,6 +55,7 @@ import numpy as np
 import torch
 
 from selavi_tpu_torch.ops.preprocess import yuv420_to_rgb_batch
+from selavi_tpu_torch.utils.profiling import count, span
 
 FIELD_ALIGN = 64  # bytes: every field of a coalesced buffer starts aligned
 
@@ -178,7 +179,13 @@ class DataLoader:
 
     def _collate(self, examples, valid=None) -> dict:
         """The batch of ``examples`` on the device; ``valid`` (bool, one
-        a row) rides along as ``"valid"`` when given."""
+        a row) rides along as ``"valid"`` when given. Spanned as
+        ``loader.collate`` and counted in ``loader.batches``."""
+        count("loader.batches")
+        with span("loader.collate"):
+            return self._collate_examples(examples, valid)
+
+    def _collate_examples(self, examples, valid) -> dict:
         host = {}
         if "video_y" in examples[0]:
             host["video_y"] = np.stack([e["video_y"] for e in examples])
@@ -220,7 +227,9 @@ class DataLoader:
                  else [None] * len(batches))
         if self.num_workers <= 0:
             for idxs, ok in zip(batches, valid):
-                yield self._collate([self._fetch(i) for i in idxs], ok)
+                with span("loader.wait"):
+                    examples = [self._fetch(i) for i in idxs]
+                yield self._collate(examples, ok)
             return
         if self.worker_mode == "process":
             pool = self._get_pool()
@@ -233,16 +242,21 @@ class DataLoader:
 
     def _pipelined(self, batches, valid, submit) -> Iterator[dict]:
         """Keep ``prefetch`` batches of examples in flight on the workers
-        and collate them in order."""
+        and collate them in order; the consumer's wait for a batch's
+        examples is the span ``loader.wait``."""
         pending = collections.deque()
         for idxs, ok in zip(batches, valid):
             pending.append(([submit(i) for i in idxs], ok))
             if len(pending) > self.prefetch:
-                futures, ok = pending.popleft()
-                yield self._collate([f.result() for f in futures], ok)
+                yield self._collate(*self._wait(pending.popleft()))
         while pending:
-            futures, ok = pending.popleft()
-            yield self._collate([f.result() for f in futures], ok)
+            yield self._collate(*self._wait(pending.popleft()))
+
+    @staticmethod
+    def _wait(entry) -> tuple[list, object]:
+        futures, ok = entry
+        with span("loader.wait"):
+            return [f.result() for f in futures], ok
 
 
 def batch_valid(batch: dict, device="cpu") -> torch.Tensor:
@@ -258,15 +272,16 @@ def batch_valid(batch: dict, device="cpu") -> torch.Tensor:
 def decode_wire_batch(batch: dict) -> dict:
     """Expand the wire formats where the batch lies: YUV 4:2:0 planes
     become RGB uint8 ``video``, int16 ``audio_pcm`` becomes fp32. Plain
-    batches pass through unchanged."""
-    if "video_y" in batch:
-        batch = dict(batch)
-        batch["video"] = yuv420_to_rgb_batch(batch.pop("video_y"),
-                                             batch.pop("video_uv"))
-    if "audio_pcm" in batch and batch["audio_pcm"].dtype == torch.int16:
-        batch = dict(batch)
-        batch["audio_pcm"] = batch["audio_pcm"].float()
-    return batch
+    batches pass through unchanged. Spanned as ``loader.decode``."""
+    with span("loader.decode"):
+        if "video_y" in batch:
+            batch = dict(batch)
+            batch["video"] = yuv420_to_rgb_batch(batch.pop("video_y"),
+                                                 batch.pop("video_uv"))
+        if "audio_pcm" in batch and batch["audio_pcm"].dtype == torch.int16:
+            batch = dict(batch)
+            batch["audio_pcm"] = batch["audio_pcm"].float()
+        return batch
 
 
 def decode_wire_batches(batch_iter: Iterator[dict]) -> Iterator[dict]:

@@ -38,7 +38,12 @@ aggregation (``aggregate_s``, every group; under a process group
 ``gather_s``, the part of it that gathers the ranks' rows), modality
 matching (``match_s``), the SK solves summed over the rank's heads
 (``solve_s``) and, with ``M > 1``, the exchange of column sums and label
-columns over the model group (``exchange_s``). On CUDA each boundary
+columns over the model group (``exchange_s``). Each is the seconds of
+the span ``engine.aggregate``, ``engine.gather``, ``engine.match``,
+``engine.solve`` or ``engine.exchange`` (``utils/profiling.py``); inside
+an aggregation pass the span ``engine.loader_start`` holds the first wait
+for a batch (the eval loader's construction, its workers' start and the
+first prefetch) and ``engine.data`` each later one. On CUDA each boundary
 synchronises the device, so each span holds its own work.
 """
 
@@ -62,6 +67,7 @@ from selavi_tpu_torch.parallel import mesh
 from selavi_tpu_torch.selflabel.marginals import MarginalState, get_marginal
 from selavi_tpu_torch.selflabel.matching import match_order
 from selavi_tpu_torch.selflabel.sinkhorn import sinkhorn_knopp
+from selavi_tpu_torch.utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -109,7 +115,14 @@ def aggregate_features(
                        device=device)
     grouped = mesh.world()[2] is not None
     kept = []
-    for batch in batch_iter:
+    batches = iter(batch_iter)
+    wait = "engine.loader_start"  # the first wait starts the loader
+    while True:
+        with span(wait):
+            batch = next(batches, None)
+        if batch is None:
+            break
+        wait = "engine.data"
         feat_v, feat_a = encode_fn(
             batch["video"], batch.get("audio", batch.get("audio_pcm")))
         idx = torch.as_tensor(batch["index"], dtype=torch.long).to(device)
@@ -121,14 +134,13 @@ def aggregate_features(
         ps_a.index_copy_(0, idx, feat_a.float())
     if grouped:
         _synchronize(device)
-        t0 = time.perf_counter()
-        idx, valid, feat_v, feat_a = (torch.cat(c) for c in zip(*kept))
-        idx = mesh.gather_rows(idx, valid)
-        ps_v.index_copy_(0, idx, mesh.gather_rows(feat_v, valid))
-        ps_a.index_copy_(0, idx, mesh.gather_rows(feat_a, valid))
-        _synchronize(device)
-        timings["gather_s"] = (timings.get("gather_s", 0.0)
-                               + time.perf_counter() - t0)
+        with span("engine.gather") as gather:
+            idx, valid, feat_v, feat_a = (torch.cat(c) for c in zip(*kept))
+            idx = mesh.gather_rows(idx, valid)
+            ps_v.index_copy_(0, idx, mesh.gather_rows(feat_v, valid))
+            ps_a.index_copy_(0, idx, mesh.gather_rows(feat_a, valid))
+            _synchronize(device)
+        timings["gather_s"] = timings.get("gather_s", 0.0) + gather.seconds
     return ps_v, ps_a
 
 
@@ -194,48 +206,51 @@ def cluster(
     cached_batches = None
     for grp in range(cfg.ind_groups):
         heads_in_group = order_heads[grp :: cfg.ind_groups]
-        t0 = time.perf_counter()
-        if not cfg.cache_group_batches:
-            batch_iter = make_batch_iter()
-        elif cached_batches is None:
-            # the first group encodes each batch as it arrives and keeps it
-            cached_batches = []
-            batch_iter = _kept(make_batch_iter(), cached_batches)
-        else:
-            batch_iter = iter(cached_batches)
-        ps_v, ps_a = aggregate_features(
-            encode_fn, batch_iter, n, cfg.feat_dim, device,
-            feat_dim_a=cfg.feat_dim_a,
-        )
-        _synchronize(device)
-        timings["aggregate_s"] += time.perf_counter() - t0
+        with span("engine.aggregate") as aggregate:
+            if not cfg.cache_group_batches:
+                batch_iter = make_batch_iter()
+            elif cached_batches is None:
+                # the first group encodes each batch as it arrives and
+                # keeps it
+                cached_batches = []
+                batch_iter = _kept(make_batch_iter(), cached_batches)
+            else:
+                batch_iter = iter(cached_batches)
+            ps_v, ps_a = aggregate_features(
+                encode_fn, batch_iter, n, cfg.feat_dim, device,
+                feat_dim_a=cfg.feat_dim_a,
+            )
+            _synchronize(device)
+        timings["aggregate_s"] += aggregate.seconds
 
         if cfg.match and iter_num == 0:
             if audio_heads is None:
                 raise ValueError("matching needs the audio HeadStack")
-            t0 = time.perf_counter()
-            logits_v_all = head_logits_fn(ps_v, "v")
-            logits_a_all = head_logits_fn(ps_a, "a")
-            for head in heads_in_group:
-                # the owner in data row 0 (rank = model index) searches,
-                # with the RNG state every rank holds; every rank goes on
-                # from its permutation and RNG state
-                src = 0 if grid is None else grid.owner(head, cfg.headcount)
-                searched = None
-                if rank == src:
-                    searched = (match_order(logits_v_all[head - first],
-                                            logits_a_all[head - first],
-                                            rng=np_rng),
-                                np_rng.bit_generator.state)
-                perm, np_rng.bit_generator.state = mesh.broadcast_object(
-                    searched, src)
-                audio_heads.permute_output(head, perm)
-                logger.info(
-                    "matched head %d (perm fixed points: %d/%d)", head,
-                    int((perm == np.arange(len(perm))).sum()), len(perm),
-                )
-            _synchronize(device)
-            timings["match_s"] += time.perf_counter() - t0
+            with span("engine.match") as match:
+                logits_v_all = head_logits_fn(ps_v, "v")
+                logits_a_all = head_logits_fn(ps_a, "a")
+                for head in heads_in_group:
+                    # the owner in data row 0 (rank = model index)
+                    # searches, with the RNG state every rank holds; every
+                    # rank goes on from its permutation and RNG state
+                    src = (0 if grid is None
+                           else grid.owner(head, cfg.headcount))
+                    searched = None
+                    if rank == src:
+                        searched = (match_order(logits_v_all[head - first],
+                                                logits_a_all[head - first],
+                                                rng=np_rng),
+                                    np_rng.bit_generator.state)
+                    perm, np_rng.bit_generator.state = (
+                        mesh.broadcast_object(searched, src))
+                    audio_heads.permute_output(head, perm)
+                    logger.info(
+                        "matched head %d (perm fixed points: %d/%d)", head,
+                        int((perm == np.arange(len(perm))).sum()),
+                        len(perm),
+                    )
+                _synchronize(device)
+            timings["match_s"] += match.seconds
 
         all_logits_v = head_logits_fn(ps_v, "v")
         all_logits_a = head_logits_fn(ps_a, "a")
@@ -251,10 +266,10 @@ def cluster(
             colsums = {head: torch.logsumexp(log_ps(head), dim=0).cpu()
                        .numpy() for head in mine}
             if sharded:
-                t0 = time.perf_counter()
-                for part in grid.gather_objects(colsums):
-                    colsums.update(part)
-                timings["exchange_s"] += time.perf_counter() - t0
+                with span("engine.exchange") as exchange:
+                    for part in grid.gather_objects(colsums):
+                        colsums.update(part)
+                timings["exchange_s"] += exchange.seconds
         # every head's marginal on every rank, in the group's order: the
         # host RNG and the marginal state advance as in one process
         log_rs = {}
@@ -269,14 +284,15 @@ def cluster(
             log_r = log_rs[head]
             m = log_ps(head)
             _synchronize(device)
-            t0 = time.perf_counter()
-            res = sinkhorn_knopp(
-                m, torch.from_numpy(log_r).to(m.device),
-                lamb=cfg.lamb, tol=cfg.sk_tol, max_iters=cfg.sk_max_iters,
-                backend=cfg.sk_backend, m_bf16=cfg.sk_m_bf16,
-            )
-            head_labels = res.labels.cpu().numpy().astype(np.int32)
-            solve_s = time.perf_counter() - t0
+            with span("engine.solve") as solve:
+                res = sinkhorn_knopp(
+                    m, torch.from_numpy(log_r).to(m.device),
+                    lamb=cfg.lamb, tol=cfg.sk_tol,
+                    max_iters=cfg.sk_max_iters, backend=cfg.sk_backend,
+                    m_bf16=cfg.sk_m_bf16,
+                )
+                head_labels = res.labels.cpu().numpy().astype(np.int32)
+            solve_s = solve.seconds
             timings["solve_s"] += solve_s
             new_labels[:, head] = head_labels
             costs[head] = res.cost
@@ -303,13 +319,14 @@ def cluster(
 
     if sharded:
         # every head's column, cost and iterations from its owner
-        t0 = time.perf_counter()
-        for part in grid.gather_objects(
-                {h: (new_labels[:, h], costs[h], iters[h]) for h in owned}):
-            for head, (column, cost, its) in part.items():
-                new_labels[:, head] = column
-                costs[head], iters[head] = cost, its
-        timings["exchange_s"] += time.perf_counter() - t0
+        with span("engine.exchange") as exchange:
+            for part in grid.gather_objects(
+                    {h: (new_labels[:, h], costs[h], iters[h])
+                     for h in owned}):
+                for head, (column, cost, its) in part.items():
+                    new_labels[:, head] = column
+                    costs[head], iters[head] = cost, its
+        timings["exchange_s"] += exchange.seconds
     # the one-process order of the solves
     solved = [h for grp in range(cfg.ind_groups)
               for h in order_heads[grp :: cfg.ind_groups]]

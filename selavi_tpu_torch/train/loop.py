@@ -10,7 +10,11 @@ for the other ``--ind_groups`` passes). Loss is logged every 50
 iterations, and to a TensorBoard ``writer`` when the caller gives one
 (``loss/iter``, ``batch_time/iter``, ``data_time/iter``, as the JAX
 Trainer writes them; the engine adds its ``train/*`` metrics), and an
-epoch returns the JAX Trainer's ``AverageMeter`` mean of those losses. A
+epoch returns the JAX Trainer's ``AverageMeter`` mean of those losses.
+The batch and data times are the seconds of the spans ``trainer.step``
+(label gather and train step) and ``trainer.data`` (the next device
+batch), which a profiler also records (``utils/profiling.py``; the
+second into ``totals`` alone, not the trace). A
 checkpoint follows every epoch; SIGUSR1 or host-memory pressure writes one
 mid-epoch and exits 0.
 
@@ -50,9 +54,9 @@ under any ``M``.
 
 from __future__ import annotations
 
+import itertools
 import logging
 import os
-import time
 from typing import Iterator
 
 import numpy as np
@@ -81,7 +85,7 @@ from selavi_tpu_torch.train.checkpoint import (
 from selavi_tpu_torch.train.optim import make_optimizer, set_lr, warmup_lr
 from selavi_tpu_torch.train.state import SelfLabelState
 from selavi_tpu_torch.utils.meters import AverageMeter
-from selavi_tpu_torch.utils.profiling import trace_window
+from selavi_tpu_torch.utils.profiling import span, trace_window
 
 logger = logging.getLogger(__name__)
 
@@ -304,14 +308,20 @@ class Trainer:
             )
         self.loader.set_epoch(epoch)
         losses = AverageMeter()
-        batch_time = AverageMeter()
-        data_time = AverageMeter()
-        end = time.time()
+        batch_time = AverageMeter()  # trainer.step's seconds
+        data_time = AverageMeter()  # trainer.data's seconds
         batches_thusfar = epoch * self.batches_per_epoch
         labels_dev = torch.from_numpy(self.sl_state.selflabels).to(self.device)
         metrics = None
-        for it, batch in enumerate(self._device_batches()):
-            data_time.update(time.time() - end)
+        batches = self._device_batches()
+        for it in itertools.count():
+            # kept out of the trace: a caller's loader may stop its
+            # profiler inside next() (utils/profiling.py)
+            with span("trainer.data", annotate=False) as data:
+                batch = next(batches, None)
+            if batch is None:
+                break
+            data_time.update(data.seconds)
             if self.maybe_cluster(batches_thusfar + it):
                 labels_dev = torch.from_numpy(self.sl_state.selflabels).to(
                     self.device)
@@ -321,13 +331,13 @@ class Trainer:
                 self.step // self.batches_per_epoch, self.args.base_lr,
                 float(self.world_size), self.args.warmup_epochs,
                 self.args.use_warmup_scheduler))
-            metrics = self.train_step(batch, labels_dev[batch["index"]],
-                                      self.step_gen)
+            with span("trainer.step") as step:
+                metrics = self.train_step(batch, labels_dev[batch["index"]],
+                                          self.step_gen)
             self.step += 1
             # the loss is read (a host sync; the mean over the ranks) only
             # at the logging cadence
-            batch_time.update(time.time() - end)
-            end = time.time()
+            batch_time.update(step.seconds)
             if it % LOG_EVERY == 0:
                 loss = self._global_loss(metrics["loss"])
                 # weighted by the global batch, as the JAX Trainer's

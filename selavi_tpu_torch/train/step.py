@@ -40,6 +40,7 @@ import torch.nn.functional as F
 from selavi_tpu_torch.ops.logmel import logfbank_batch
 from selavi_tpu_torch.ops.preprocess import augment_video_batch, normalize_video
 from selavi_tpu_torch.parallel import mesh
+from selavi_tpu_torch.utils.profiling import span
 
 
 def autocast(device: torch.device, compute_dtype: torch.dtype):
@@ -108,30 +109,36 @@ def make_train_step(model, optimizer, colorjitter: bool = False,
     ``batch['audio_pcm']`` [B,S], turned into spectrograms by
     ``prepare_audio``) on the device; ``labels`` [B, H]. ``video_clips`` >
     1 (dual_data) gives each time-concatenated clip its own flip and
-    jitter; ``shard`` as in the module docstring."""
+    jitter; ``shard`` as in the module docstring. Its stages are the
+    spans ``train.input`` (augmentation, log-mel), ``train.forward``
+    (model and losses), ``train.backward`` (with DDP's all-reduces) and
+    ``train.optimizer`` (``utils/profiling.py``)."""
     param = next(model.parameters())
     device, dtype = param.device, param.dtype
 
     def step(batch, labels, generator):
         model.train()
-        video = augment_video_batch(batch["video"], generator,
-                                    colorjitter=colorjitter,
-                                    grayscale=grayscale, flip=True,
-                                    dtype=dtype, clips=video_clips,
-                                    shard=shard)
-        audio = prepare_audio(batch.get("audio", batch.get("audio_pcm")),
-                              dtype, audio_cfg)
+        with span("train.input"):
+            video = augment_video_batch(batch["video"], generator,
+                                        colorjitter=colorjitter,
+                                        grayscale=grayscale, flip=True,
+                                        dtype=dtype, clips=video_clips,
+                                        shard=shard)
+            audio = prepare_audio(batch.get("audio", batch.get("audio_pcm")),
+                                  dtype, audio_cfg)
         headcount = labels.shape[1]
         labels = head_labels(labels, grid)
-        with autocast(device, compute_dtype):
+        with span("train.forward"), autocast(device, compute_dtype):
             logits_v, logits_a = model(video, audio, generator=generator,
                                        shard=shard)
             loss_v = multihead_ce(logits_v, labels, headcount)
             loss_a = multihead_ce(logits_a, labels, headcount)
             loss = 0.5 * loss_v + 0.5 * loss_a
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        optimizer.step()
+        with span("train.backward"):
+            optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+        with span("train.optimizer"):
+            optimizer.step()
         return {"loss": loss.detach(), "loss_v": loss_v.detach(),
                 "loss_a": loss_a.detach()}
 
