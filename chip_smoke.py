@@ -6,7 +6,7 @@ Run from the root of a checkout on a machine with one CUDA card:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels and its C++ host data runtime from the
-checkout's sources (``selavi_tpu_torch/csrc/{fused_sk,conv3x3}.cu`` and
+checkout's sources (``selavi_tpu_torch/csrc/{fused_sk,conv3x3,temporal_conv}.cu`` and
 ``selavi_tpu_torch/native/data_runtime.cpp`` into
 ``build/selavi_tpu_torch/``, one ``nvcc`` per source and ``g++``, started
 together; it fails if the host runtime does not load), holds each kernel
@@ -32,7 +32,8 @@ with the launch counts set to 0 just before and read just after each:
   port's CPU result; ``selavi_tpu_torch.cli.clustering_metrics`` reports
   on it. The dump's seconds, clips/s and peak memory are printed;
 - the rest of the evaluation suite on run 2's checkpoint, which launches
-  no hand kernel (the counts must stay at 0): the checkpoint exported to
+  neither the SK nor the conv3x3 kernels (their counts must stay at 0; its
+  bf16 video forwards run the temporal conv kernel): the checkpoint exported to
   the reference ``.pth`` layout (``train/torch_export.py``) and imported
   back (``train/torch_import.py``) bit for bit, and
   ``selavi_tpu_torch.cli.get_clusters`` on the ``.pth`` giving the
@@ -66,8 +67,9 @@ with the launch counts set to 0 just before and read just after each:
   prepare_audio``). A fresh Trainer restored from its checkpoint times the
   step on a resident wire-format batch and an epoch, and the same CLI
   resumed with ``--trace_profile true`` traces one epoch with the host
-  ops' input shapes, which name the layers behind the fp32 FFMA
-  convolution kernels;
+  ops' input shapes, which name the layers behind any fp32 FFMA
+  convolution kernel (none may be a forward: R(2+1)D's temporal convs run
+  the hand kernel, 17 launches a video forward);
 - the SK cache: the recipe with ``--ind_groups 2``, one SK step without
   and one with ``--sk_cache_batches`` (two aggregation loaders against
   one), each with its seconds, split and peak memory;
@@ -102,6 +104,14 @@ filters, z-normalized) and the card's YUV decode against its CPU result
 at ``[24, 30, 112, 112]``, and prints which real-media decoders the
 machine has (the real-media path itself is held against the JAX package
 by the CPU tests).
+The temporal conv kernel (``ops/temporal_conv.py``) is held against its
+plain version at the tower's 17 shapes of both midplanes modes (batch 24,
+within one bf16 ulp, bit-identical on repeat), the model's
+``TemporalConv3d`` against the conv3d it replaced under bf16 autocast
+(forward within one ulp; input and weight gradients equal), and held to
+its plain version again and timed at batch 128 at the stem's, layer1's
+and layer4-block1's shapes beside its byte bound, its plain version and
+cuDNN as the model called it before.
 Then it times the SK kernel and the train step, and the synthetic epoch
 with the host's native data runtime on threads, then with its numpy twins,
 then twice native on spawned worker processes. For
@@ -303,6 +313,8 @@ CONV_KERNELS = (
     ("conv3x3_dgrad", "experiments/pallas_conv3x3.py:194"),
     ("conv3x3_wgrad", "experiments/pallas_conv3x3.py:162"),
 )
+# R(2+1)D's temporal convs a video forward, each one hand-kernel launch
+TEMPORAL_CONVS = 17
 
 
 def check(cond: bool, what: str) -> None:
@@ -1570,6 +1582,7 @@ def packed_path(torch, sf, device, report, tmp):
     from selavi_tpu_torch.config import parse_arguments
     from selavi_tpu_torch.data.factory import build_dataset
     from selavi_tpu_torch.data.packed import PackedAVDataset
+    from selavi_tpu_torch.ops import temporal_conv as tc
     from selavi_tpu_torch.train import loop
     from selavi_tpu_torch.train import step as steps
     from selavi_tpu_torch.train.checkpoint import CKPT_NAME
@@ -1684,6 +1697,7 @@ def packed_path(torch, sf, device, report, tmp):
             traces.append(prof)
 
     sf.reset_launches()
+    tc.reset_launches()
     loop.trace_window = keep_trace
     try:
         code, trainer = _run_cli(
@@ -1693,9 +1707,15 @@ def packed_path(torch, sf, device, report, tmp):
     finally:
         loop.trace_window = profiling.trace_window
     epochs = [h["epoch"] for h in trainer.history if "iter" not in h]
+    steps = trainer.batches_per_epoch
     del trainer
     print(f"packed CLI run 2 (--trace_profile true): exit {code}, epochs "
-          f"trained {epochs}, fused SK launches {sf.launches}", flush=True)
+          f"trained {epochs}, fused SK launches {sf.launches}, temporal conv "
+          f"launches {tc.launches} ({TEMPORAL_CONVS} a video forward, "
+          f"{steps} steps)", flush=True)
+    check(tc.launches == TEMPORAL_CONVS * steps,
+          "the temporal conv kernel runs every temporal conv of every step")
+    report["temporal_launches"] = tc.launches
     check(code is None and epochs == [1] and sf.launches == 0,
           "the traced packed run resumes at epoch 1 with no SK step")
     trace_split(torch, os.path.join(dump, "profile", profiling.TRACE_NAME),
@@ -1704,7 +1724,95 @@ def packed_path(torch, sf, device, report, tmp):
     print(f"packed traced epoch on {report['card']}: device busy "
           f"{t['busy_ms'] / t['window_ms'] * 100:.1f}% of the traced "
           f"epoch", flush=True)
-    conv_kernel_origins(traces[0])
+    found = conv_kernel_origins(traces[0])
+    check(not any("fprop" in name for name, _ in found),
+          "no fp32 FFMA convolution forward in the traced epoch")
+
+
+def temporal_conv_path(torch, tc, device, report):
+    """Phase 2d: the temporal conv kernel against its plain version at the
+    tower's 17 shapes of both midplanes modes (batch 24, the batch of this
+    script's epochs), the model's TemporalConv3d against conv3d under bf16
+    autocast, and the kernel at batch 128 (the benchmark's batch) against
+    its plain version and timed beside its bound, plain version and
+    cuDNN."""
+    import torch.nn.functional as F
+
+    from selavi_tpu_torch.experiments import temporal_conv as bench
+    from selavi_tpu_torch.models.r2plus1d import (
+        TemporalConv3d,
+        temporal_conv_shapes,
+    )
+
+    ulps = bench.bf16_ulps
+    gen = torch.Generator(device=device).manual_seed(0)
+    worst = worst_abs = 0.0
+    tc.reset_launches()
+    for mode in ("parity", "aligned"):
+        for name, c, co, stride, t, h, w in temporal_conv_shapes(mode):
+            x = torch.randn(24, c, t, h, w, device=device, generator=gen,
+                            dtype=torch.bfloat16).contiguous(
+                                memory_format=torch.channels_last_3d)
+            wt = (torch.randn(co, c, 3, 1, 1, device=device, generator=gen)
+                  * c ** -0.5).to(torch.bfloat16)
+            y = tc.temporal_conv(x, wt, stride)
+            ref = tc.temporal_conv_plain(x, wt, stride)
+            err = ulps(y, ref)
+            worst_abs = max(worst_abs,
+                            float((y.float() - ref.float()).abs().max()))
+            same = torch.equal(y, tc.temporal_conv(x, wt, stride))
+            plan = tc.plan(c, co, h * w, x.data_ptr())
+            print(f"temporal conv kernel vs plain {mode} {name} "
+                  f"{list(x.shape)} -> {co}, stride {stride} "
+                  f"({'resident' if plan['resident'] else 'streamed'}, "
+                  f"{plan['load']}, {plan['stages']} stages): {err:.2f} "
+                  f"bf16 ulps, repeat bit-identical {same}", flush=True)
+            check(err <= 1.0, f"temporal conv {mode} {name} within one ulp")
+            check(same, f"temporal conv {mode} {name}: deterministic")
+            check(y.is_contiguous(memory_format=torch.channels_last_3d),
+                  f"temporal conv {mode} {name}: channels_last_3d out")
+            worst = max(worst, err)
+    check(tc.launches == 2 * 2 * TEMPORAL_CONVS, "a launch a call")
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        for c, co, stride, t, hw in ((45, 64, 1, 30, 56),
+                                     (144, 64, 1, 30, 56),
+                                     (230, 128, 2, 30, 28)):
+            conv = TemporalConv3d(c, co, stride, torch.Generator()).to(device)
+            x = torch.randn(2, c, t, hw, hw, device=device,
+                            generator=gen).contiguous(
+                                memory_format=torch.channels_last_3d)
+            outs = []
+            for fn in (conv, lambda v: F.conv3d(v, conv.weight, None,
+                                                conv.stride, conv.padding)):
+                xi = x.clone().requires_grad_()
+                conv.weight.grad = None
+                with torch.autocast("cuda", dtype=torch.bfloat16):
+                    y = fn(xi)
+                g = torch.randn(y.shape, device=device, generator=torch.
+                                Generator(device=device).manual_seed(1))
+                y.backward(g.to(y.dtype).contiguous(
+                    memory_format=torch.channels_last_3d))
+                outs.append((y.detach(), xi.grad, conv.weight.grad.clone()))
+            (y, gx, gw), (ry, rgx, rgw) = outs
+            err = ulps(y, ry)
+            print(f"TemporalConv3d vs conv3d under bf16 autocast at {c} -> "
+                  f"{co}, stride {stride}: forward {err:.2f} ulps, input "
+                  f"and weight gradients equal {torch.equal(gx, rgx)} "
+                  f"{torch.equal(gw, rgw)}", flush=True)
+            check(err <= 1.0 and torch.equal(gx, rgx)
+                  and torch.equal(gw, rgw), f"TemporalConv3d at {c} -> {co}")
+    finally:
+        torch.backends.cudnn.deterministic = False
+    rows = bench.bench(device, names=bench.TABLE)
+    for r in rows:
+        check(r["ulps"] <= 1.0,
+              f"temporal conv {r['name']} at batch 128 within one ulp")
+    report["temporal_max_ulps"] = max([worst] + [r["ulps"] for r in rows])
+    report["temporal_max_abs_err"] = max(
+        [worst_abs] + [r["max_abs_err"] for r in rows])
+    report["temporal_bench"] = rows
 
 
 def conv_kernels_vs_plain(torch, conv, device, report):
@@ -2203,6 +2311,7 @@ def grid_rank(rank: int, port: int, tmp: str) -> int:
     from selavi_tpu_torch.cli import main as cli_main
     from selavi_tpu_torch.data.loader import decode_wire_batch
     from selavi_tpu_torch.ops import sinkhorn_fused as sf
+    from selavi_tpu_torch.ops import temporal_conv as tc
     from selavi_tpu_torch.selflabel import engine
     from selavi_tpu_torch.train import loop
     from selavi_tpu_torch.train import step as steps
@@ -2345,6 +2454,7 @@ def main() -> int:
     from selavi_tpu_torch.ops import _build
     from selavi_tpu_torch.ops import conv3x3 as conv
     from selavi_tpu_torch.ops import sinkhorn_fused as sf
+    from selavi_tpu_torch.ops import temporal_conv as tc
 
     logging.basicConfig(level=logging.INFO, stream=sys.stderr,
                         format="%(asctime)s %(name)s %(message)s")
@@ -2363,9 +2473,9 @@ def main() -> int:
     # One nvcc per source and g++ for the host data runtime, started
     # together.
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(4) as pool:
         libs = list(pool.map(lambda m: m.build_library(),
-                             (sf, conv, native)))
+                             (sf, conv, native, tc)))
     print(f"built {', '.join(lib.name for lib in libs)} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     print(f"host data runtime: {libs[2].name} (g++ "
@@ -2376,6 +2486,7 @@ def main() -> int:
     inputs = kernel_vs_plain(torch, sf, device, report)
     solver_fused_vs_plain(torch, sf, device, report)
     conv_kernels_vs_plain(torch, conv, device, report)
+    temporal_conv_path(torch, tc, device, report)
     frontend_and_yuv(torch, device, report)
     from selavi_tpu_torch.data import decoder
 
@@ -2387,10 +2498,12 @@ def main() -> int:
     try:
         trainer = cli_path(torch, sf, device, report, dump)
         eval_path(torch, device, report, dump)
-        # the rest of the evaluation suite on run 2's checkpoint; none of
-        # it launches a hand kernel
+        # the rest of the evaluation suite on run 2's checkpoint: none of
+        # it launches the SK or conv3x3 kernels (its bf16 video forwards run
+        # the temporal conv kernel)
         sf.reset_launches()
         conv.reset_launches()
+        tc.reset_launches()
         t_suite = time.perf_counter()
         suite = tempfile.mkdtemp(prefix="chip_smoke_eval_suite_")
         try:
@@ -2403,9 +2516,11 @@ def main() -> int:
             shutil.rmtree(suite, ignore_errors=True)
         suite_launches = sf.launches + sum(conv.launches.values())
         print(f"evaluation suite (.pth import, cluster_vis, retrieval, "
-              f"finetuning): {time.perf_counter() - t_suite:.1f} s, hand "
-              f"kernel launches {suite_launches}", flush=True)
-        check(suite_launches == 0, "the evaluation suite runs no hand kernel")
+              f"finetuning): {time.perf_counter() - t_suite:.1f} s, SK and "
+              f"conv3x3 launches {suite_launches}, temporal conv launches "
+              f"{tc.launches}", flush=True)
+        check(suite_launches == 0,
+              "the evaluation suite runs no SK or conv3x3 kernel")
     finally:
         _restore_process_state()
         shutil.rmtree(dump, ignore_errors=True)
@@ -2535,6 +2650,23 @@ def main() -> int:
             "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
         })
+    # The temporal conv kernel at layer1's shape at batch 128, as the
+    # experiment times it; its launches in the traced packed epoch.
+    t = next(r for r in report["temporal_bench"]
+             if r["name"] == "layer1_block0.conv1.temporal")
+    kernels.append({
+        "name": "temporal_conv",
+        "route": "cuda",
+        "source": "selavi_tpu_torch/csrc/temporal_conv.cu",
+        "replaces": None,
+        "launches": report["temporal_launches"],
+        "max_abs_err": report["temporal_max_abs_err"],
+        "ms": t["ms"],
+        "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"],
+        "library_ms": t["library_ms"],
+    })
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -14,6 +14,10 @@ Kept from the reference tower:
 * downsample strides by s in all three dims;
 * fp32 global average pool; ``return_map`` gives the pre-GAP map
   ``[B, t, h, w, 512]``.
+
+The temporal (3,1,1) convs are ``TemporalConv3d``: an ``nn.Conv3d`` (same
+weight, same parameter name) whose forward runs the hand kernel of
+``ops/temporal_conv.py`` on bf16 CUDA inputs.
 """
 
 from __future__ import annotations
@@ -24,7 +28,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from selavi_tpu_torch.models.common import FlaxBatchNorm, make_conv
+from selavi_tpu_torch.models.common import (
+    FlaxBatchNorm,
+    kaiming_normal_fan_out_,
+    make_conv,
+)
+from selavi_tpu_torch.ops.temporal_conv import TemporalConvFunction
 
 VIDEO_FEATURE_DIM = 512
 
@@ -38,6 +47,45 @@ def _midplanes(in_planes: int, out_planes: int) -> int:
 def _aligned_midplanes(in_planes: int, out_planes: int) -> int:
     mid = _midplanes(in_planes, out_planes)
     return max(128, int(round(mid / 128)) * 128)
+
+
+def _autocast_cast(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """What autocast does to a conv's operand: float16/32 and bfloat16 to
+    ``dtype``, float64 left alone."""
+    return t.to(dtype) if t.is_floating_point() and t.dtype != torch.float64 \
+        else t
+
+
+class TemporalConv3d(nn.Conv3d):
+    """The (3,1,1) conv, stride (s, 1, 1), padding (1, 0, 0), no bias.
+
+    Its forward routes on the input alone, casting as autocast's conv does
+    (to the autocast dtype, then autocast off): bf16 on the card runs the
+    hand kernel (``ops/temporal_conv.py``) on x in channels_last_3d memory;
+    a CPU tensor runs its plain version; another CUDA dtype (a float32 or
+    float16 run) keeps ``F.conv3d``, for which the kernel does not exist."""
+
+    def __init__(self, in_planes: int, out_planes: int, stride: int,
+                 generator: torch.Generator):
+        super().__init__(in_planes, out_planes, (3, 1, 1), (stride, 1, 1),
+                         (1, 0, 0), bias=False)
+        kaiming_normal_fan_out_(self.weight, generator)
+
+    def forward(self, x):
+        device = x.device.type
+        if torch.is_autocast_enabled(device):
+            dtype = torch.get_autocast_dtype(device)
+            with torch.autocast(device, enabled=False):
+                return self._conv(_autocast_cast(x, dtype),
+                                  _autocast_cast(self.weight, dtype))
+        return self._conv(x, self.weight)
+
+    def _conv(self, x, w):
+        if x.is_cuda:
+            if x.dtype != torch.bfloat16:
+                return F.conv3d(x, w, None, self.stride, self.padding)
+            x = x.contiguous(memory_format=torch.channels_last_3d)
+        return TemporalConvFunction.apply(x, w, self.stride[0])
 
 
 class Conv2Plus1D(nn.Module):
@@ -54,8 +102,7 @@ class Conv2Plus1D(nn.Module):
         self.spatial = make_conv(in_planes, mid, (1, 3, 3), (1, stride, stride),
                                  (0, 1, 1), generator)
         self.bn_mid = FlaxBatchNorm(mid)
-        self.temporal = make_conv(mid, out_planes, (3, 1, 1), (stride, 1, 1),
-                                  (1, 0, 0), generator)
+        self.temporal = TemporalConv3d(mid, out_planes, stride, generator)
 
     def forward(self, x):
         return self.temporal(F.relu(self.bn_mid(self.spatial(x))))
@@ -106,8 +153,7 @@ class R2Plus1D18(nn.Module):
         g = generator if generator is not None else torch.Generator()
         self.stem_spatial = make_conv(3, 45, (1, 7, 7), (1, 2, 2), (0, 3, 3), g)
         self.stem_bn1 = FlaxBatchNorm(45)
-        self.stem_temporal = make_conv(45, 64, (3, 1, 1), (1, 1, 1), (1, 0, 0),
-                                       g)
+        self.stem_temporal = TemporalConv3d(45, 64, 1, g)
         self.stem_bn2 = FlaxBatchNorm(64)
         for stage, (in_planes, planes, stride) in enumerate(self.PLAN, 1):
             setattr(self, f"layer{stage}_block0", BasicBlock2Plus1D(
@@ -126,3 +172,27 @@ class R2Plus1D18(nn.Module):
         if return_map:
             return x.permute(0, 2, 3, 4, 1).float()
         return x.float().mean(dim=(2, 3, 4))
+
+
+def temporal_conv_shapes(midplanes_mode: str = "parity", frames: int = 30,
+                         size: int = 112) -> list:
+    """``(name, C, Co, stride, T, H, W)`` of the tower's 17 temporal convs:
+    each one's channels and stride, and the input it is handed for clips of
+    ``frames`` x ``size`` x ``size`` (as ``R2Plus1D18`` builds them)."""
+    hw = (size + 2 * 3 - 7) // 2 + 1  # the stem's (1, 7, 7) conv, stride 2
+    t = frames
+    shapes = [("stem_temporal", 45, 64, 1, t, hw, hw)]
+    for stage, (in_planes, planes, stride) in enumerate(R2Plus1D18.PLAN, 1):
+        for block, (block_in, s) in enumerate(((in_planes, stride),
+                                               (planes, 1))):
+            shared = (_midplanes(block_in, planes)
+                      if midplanes_mode == "parity" else None)
+            for conv, (conv_in, cs) in enumerate(((block_in, s),
+                                                  (planes, 1)), 1):
+                mid = (shared if shared is not None
+                       else _aligned_midplanes(conv_in, planes))
+                hw = (hw - 1) // cs + 1  # the (1, 3, 3) conv, padding 1
+                shapes.append((f"layer{stage}_block{block}.conv{conv}."
+                               f"temporal", mid, planes, cs, t, hw, hw))
+                t = (t - 1) // cs + 1
+    return shapes
