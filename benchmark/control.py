@@ -117,7 +117,7 @@ def main(argv=None):
         r = harness.Run(cell=a.workload, seed=seed, seconds=0, trace=False,
                         config=config, workload=workload)
         only = {"faults": False, "look": False} if a.control_only else {}
-        for name, readings in READINGS[workload["driver"]](r, **only).items():
+        for name, readings in READINGS[r.traffic](r, **only).items():
             correct, checks = judge(readings, workload["limits"])
             print(json.dumps({"seed": seed, "reading": name,
                               "correct": correct, "checks": checks,

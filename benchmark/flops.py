@@ -1,13 +1,15 @@
 """The yardstick: model FLOPs of a clip, bytes of an SK iteration, and the
 card's published peaks.
 
-FLOPs are 2 x the multiply-adds of every convolution and dense layer,
-taken from the shapes of the benchmark's own plain network
-(``reference/model.py``) as it runs on the ``meta`` device; BatchNorm,
-activations, pooling and the loss are not counted. A training step costs
-three times the forward pass (the forward, the input gradient and the
-weight gradient of every layer) less the input gradient of the two stems,
-which no step computes. Nothing recomputed is counted.
+FLOPs are 2 x the multiply-adds of every product (each convolution, the
+heads' dense layers, and whatever a tower's own modules count: see
+``reference/towers``), taken from the shapes of the benchmark's own plain
+network (``reference/model.py``, its towers found by name) as it runs on
+the ``meta`` device; BatchNorm, activations, pooling and the loss are not
+counted. A training step costs three times the forward pass (the
+forward, the input gradient and the weight gradient of every layer) less
+the input gradient of the two stems, which no step computes. Nothing
+recomputed is counted.
 """
 
 from __future__ import annotations
@@ -35,19 +37,20 @@ def dense_flops(rows, fan_in, fan_out, stacks=1):
 
 def count(net, *inputs):
     """``{"forward": F, "stems": S}``: the forward FLOPs of ``net`` on
-    ``inputs`` and the part of them in the first convolution that each of
-    its towers (its top-level modules) runs, whose input gradient no step
-    needs."""
+    ``inputs`` and the part of them in the first product that each of its
+    towers (its top-level modules) finishes, whose input gradient no step
+    needs. The products are each ``Conv``, each ``Heads`` (no tower's
+    stem) and each module with a method ``flops(args, out)``."""
     totals = {"forward": 0, "stems": 0}
     hooks, towers = [], set()
 
-    def conv_hook(name):
+    def product_hook(name, flops_of):
         tower = name.split(".")[0] if "." in name else ""
 
         def hook(module, args, out):
-            f = conv_flops(module.weight.shape, out.shape)
+            f = flops_of(args, out)
             totals["forward"] += f
-            if tower not in towers:  # a tower's first conv reads the input
+            if tower not in towers:  # a tower's first product reads the input
                 towers.add(tower)
                 totals["stems"] += f
         return hook
@@ -59,10 +62,14 @@ def count(net, *inputs):
                               + dense_flops(rows, hidden, out.shape[-1], h))
 
     for name, m in net.named_modules():
-        if isinstance(m, Conv):
-            hooks.append(m.register_forward_hook(conv_hook(name)))
-        elif isinstance(m, Heads):
+        if isinstance(m, Heads):
             hooks.append(m.register_forward_hook(heads_hook))
+        elif isinstance(m, Conv):
+            hooks.append(m.register_forward_hook(product_hook(
+                name, lambda args, out, m=m: conv_flops(m.weight.shape,
+                                                        out.shape))))
+        elif hasattr(m, "flops"):
+            hooks.append(m.register_forward_hook(product_hook(name, m.flops)))
     try:
         with torch.no_grad():
             net(*inputs)
@@ -74,11 +81,11 @@ def count(net, *inputs):
 
 def clip_flops(flags, spec_frames):
     """``{"forward", "train"}`` FLOPs of one clip of a configuration's
-    ``flags`` (the port's flag names) with ``spec_frames`` spectrogram
-    frames."""
+    ``flags`` (the port's flag names, the towers' among them) with
+    ``spec_frames`` spectrogram frames."""
     with torch.device("meta"):
-        net = Network(flags["aud_base_arch"], flags["headcount"],
-                      flags["mlp_dim"]).eval()
+        net = Network(flags["vid_base_arch"], flags["aud_base_arch"],
+                      flags["headcount"], flags["mlp_dim"]).eval()
         t, c = flags["num_frames"], flags["train_crop_size"]
         nfilt = 40 if flags["aud_spec_type"] == 1 else 257
         video = torch.empty(1, t, c, c, 3)

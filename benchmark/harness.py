@@ -4,10 +4,14 @@ against JAX, and the result line.
 
 A cell ``<name>`` of ``BENCHMARK.json`` is driven by the data file
 ``workloads/<name>.json``, whose ``driver`` names ``traffic/<driver>.py``;
-its configuration is the file that ``BENCHMARK.json`` gives; every metric
+its configuration is the file that ``BENCHMARK.json`` gives, whose
+towers are found by name (``reference/towers``); every metric
 ``<metric>`` is read by ``metrics/<metric>.py`` (a function ``read(run)``
-that returns a number, or None where the run holds nothing to read).
-Nothing here needs an edit when a cell, a configuration or a metric is
+that returns a number, or None where the run holds nothing to read). A
+driver module's ``TRAFFIC`` says what it drives (``"pretrain"`` or
+``"selflabel"``), and the readers take or leave a run by that
+(``Run.traffic``), never by the driver's name. Nothing here needs an
+edit when a cell, a configuration, a tower, a driver or a metric is
 added.
 """
 
@@ -57,6 +61,11 @@ class Run:
     flops: dict = dataclasses.field(default_factory=dict)
     extra: dict = dataclasses.field(default_factory=dict)
     checks: dict = dataclasses.field(default_factory=dict)  # name: (x, lim)
+
+    @property
+    def traffic(self):
+        """The ``TRAFFIC`` of the cell's driver, or None."""
+        return getattr(driver(self.workload), "TRAFFIC", None)
 
     @property
     def correct(self):

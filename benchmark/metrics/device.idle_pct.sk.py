@@ -3,7 +3,7 @@
 
 
 def read(run):
-    if run.workload["driver"] != "selflabel" or run.summary is None:
+    if run.traffic != "selflabel" or run.summary is None:
         return None
     s = run.summary
     return 100.0 * (1.0 - s["busy_s"] / s["window_s"])

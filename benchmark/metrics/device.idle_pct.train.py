@@ -3,7 +3,7 @@ runs, in %."""
 
 
 def read(run):
-    if run.workload["driver"] != "pretrain" or run.summary is None:
+    if run.traffic != "pretrain" or run.summary is None:
         return None
     s = run.summary
     return 100.0 * (1.0 - s["busy_s"] / s["window_s"])

@@ -3,6 +3,6 @@
 
 
 def read(run):
-    if run.workload["driver"] != "pretrain" or not run.window_peak_bytes:
+    if run.traffic != "pretrain" or not run.window_peak_bytes:
         return None
     return run.window_peak_bytes / 2 ** 30

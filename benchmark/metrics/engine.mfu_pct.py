@@ -7,7 +7,7 @@ from benchmark.flops import BF16_PEAK_FLOPS
 
 
 def read(run):
-    if run.workload["driver"] != "selflabel" or not run.units:
+    if run.traffic != "selflabel" or not run.units:
         return None
     clips = run.extra["n"] * run.extra["passes"]
     work = run.flops["forward"] * clips * run.units

@@ -3,6 +3,6 @@
 
 
 def read(run):
-    if run.workload["driver"] != "pretrain" or not run.window_s:
+    if run.traffic != "pretrain" or not run.window_s:
         return None
     return 100.0 * run.wait_s / run.window_s

@@ -8,7 +8,7 @@ from benchmark.trace import mean_duration
 
 
 def read(run):
-    if run.workload["driver"] != "selflabel" or run.summary is None:
+    if run.traffic != "selflabel" or run.summary is None:
         return None
     seconds = mean_duration(run.summary, "sk_iteration")
     if not seconds:

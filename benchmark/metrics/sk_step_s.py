@@ -3,6 +3,6 @@ clock)."""
 
 
 def read(run):
-    if run.workload["driver"] != "selflabel" or not run.units:
+    if run.traffic != "selflabel" or not run.units:
         return None
     return run.window_s / run.units

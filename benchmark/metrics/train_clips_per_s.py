@@ -4,6 +4,6 @@ step), loader stalls included."""
 
 
 def read(run):
-    if run.workload["driver"] != "pretrain" or not run.window_s:
+    if run.traffic != "pretrain" or not run.window_s:
         return None
     return run.units / run.window_s

@@ -7,7 +7,7 @@ from benchmark.flops import BF16_PEAK_FLOPS
 
 
 def read(run):
-    if (run.workload["driver"] != "pretrain" or run.summary is None
+    if (run.traffic != "pretrain" or run.summary is None
             or not run.traced_wall_s):
         return None
     return (100.0 * run.flops["train"] * run.traced_units

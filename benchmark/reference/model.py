@@ -1,22 +1,14 @@
-"""The plain reference of SeLaVi's network: R(2+1)D-18 video, a 2D ResNet
-over log-mel spectrograms for audio, and ``headcount`` MLP heads a
-modality, in plain PyTorch.
+"""The plain reference of SeLaVi's network in plain PyTorch: a video tower
+and an audio tower, each found by its name (``towers/``), and
+``headcount`` MLP heads a modality, sized at each tower's feature width.
 
 It follows the published description (Asano et al., NeurIPS 2020;
-facebookresearch/selavi ``model.py``, torchvision's ``r2plus1d_18``) and
-holds its parameters under the names and layouts of the system under
-test, so that one state dict made by the benchmark loads into both. It
-imports nothing of the system under test.
+facebookresearch/selavi ``model.py``) and holds its parameters under the
+names and layouts of the system under test, so that one state dict made
+by the benchmark loads into both. It imports nothing of the system under
+test.
 
-* Video: stem (1,7,7)/2 conv to 45 channels, BN, ReLU, (3,1,1) conv to 64,
-  BN, ReLU; four stages of two (2+1)D basic blocks (64, 128, 256, 512;
-  stride 2 from stage 2, in all three dims), torchvision's midplanes
-  ``in*out*27 / (9*in + 3*out)`` shared by a block's two convs; global
-  average pool to 512.
-* Audio: stem 7x7/2 conv to 64, BN, ReLU, 3x3/2 max pool; resnet9 (one
-  basic block a stage) or resnet50 (3, 4, 6, 3 bottlenecks, x4 expansion);
-  global average pool to 512 or 2048.
-* Heads: per head Dropout(0.3), Dense(512, no bias), BN, ReLU,
+* Heads: per head Dropout(0.3), Dense(D, 512, no bias), BN, ReLU,
   Dropout(0.3), Dense(K).
 * BatchNorm: train mode normalises with the batch's biased variance,
   eps 1e-5; eval mode with the running statistics.
@@ -31,22 +23,19 @@ so that every product of the step takes fp8 operands.
 from __future__ import annotations
 
 import contextlib
+import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from benchmark.reference import towers
+
 BN_EPS = 1e-5
 DROPOUT = 0.3
 E4M3_MAX = 448.0  # largest finite float8 values
 E5M2_MAX = 57344.0
-
-# name -> (block kind, blocks a stage, feature width)
-AUDIO_ARCHS = {
-    "resnet9": ("basic", (1, 1, 1, 1), 512),
-    "resnet50": ("bottleneck", (3, 4, 6, 3), 2048),
-}
 
 
 class Precision:
@@ -154,155 +143,13 @@ def _run(block, x):
     return block(x)
 
 
-def midplanes(cin, cout):
-    return (cin * cout * 27) // (cin * 9 + 3 * cout)
-
-
-class Conv2Plus1D(nn.Module):
-    def __init__(self, cin, cout, stride, mid):
-        super().__init__()
-        self.spatial = Conv(cin, mid, (1, 3, 3), (1, stride, stride),
-                            (0, 1, 1))
-        self.bn_mid = BN(mid)
-        self.temporal = Conv(mid, cout, (3, 1, 1), (stride, 1, 1),
-                             (1, 0, 0))
-
-    def unit(self, x):
-        return F.relu(self.bn_mid(self.spatial(x)))
-
-    def forward(self, x):
-        return self.temporal(_run(self.unit, x))
-
-
-class Downsample(nn.Module):
-    def __init__(self, cin, cout, stride, ndim=3):
-        super().__init__()
-        self.conv = Conv(cin, cout, (1,) * ndim, (stride,) * ndim,
-                         (0,) * ndim)
-        self.bn = BN(cout)
-
-    def forward(self, x):
-        return self.bn(self.conv(x))
-
-
-class VideoBlock(nn.Module):
-    def __init__(self, cin, cout, stride):
-        super().__init__()
-        mid = midplanes(cin, cout)
-        self.conv1 = Conv2Plus1D(cin, cout, stride, mid)
-        self.bn1 = BN(cout)
-        self.conv2 = Conv2Plus1D(cout, cout, 1, mid)
-        self.bn2 = BN(cout)
-        self.downsample = (Downsample(cin, cout, stride)
-                           if stride != 1 or cin != cout else None)
-
-    def first(self, x):
-        return F.relu(self.bn1(self.conv1(x)))
-
-    def second(self, x):
-        return self.bn2(self.conv2(x))
-
-    def forward(self, x):
-        out = _run(self.second, _run(self.first, x))
-        res = x if self.downsample is None else self.downsample(x)
-        return F.relu(out + res)
-
-
-class Video(nn.Module):
-    PLAN = ((64, 64, 1), (64, 128, 2), (128, 256, 2), (256, 512, 2))
-
-    def __init__(self):
-        super().__init__()
-        self.stem_spatial = Conv(3, 45, (1, 7, 7), (1, 2, 2), (0, 3, 3))
-        self.stem_bn1 = BN(45)
-        self.stem_temporal = Conv(45, 64, (3, 1, 1), (1, 1, 1), (1, 0, 0))
-        self.stem_bn2 = BN(64)
-        for s, (cin, cout, stride) in enumerate(self.PLAN, 1):
-            setattr(self, f"layer{s}_block0", VideoBlock(cin, cout, stride))
-            setattr(self, f"layer{s}_block1", VideoBlock(cout, cout, 1))
-
-    def stem(self, x):
-        x = F.relu(self.stem_bn1(self.stem_spatial(x)))
-        return F.relu(self.stem_bn2(self.stem_temporal(x)))
-
-    def forward(self, video):
-        """video [B, T, H, W, 3] -> [B, 512]."""
-        x = _run(self.stem, video.permute(0, 4, 1, 2, 3))
-        for s in range(1, 5):
-            for b in range(2):
-                x = _run(getattr(self, f"layer{s}_block{b}"), x)
-        return x.mean(dim=(2, 3, 4))
-
-
-class ConvBN(nn.Module):
-    def __init__(self, cin, cout, kernel, stride, padding, relu):
-        super().__init__()
-        self.conv = Conv(cin, cout, kernel, stride, padding)
-        self.bn = BN(cout)
-        self.relu = relu
-
-    def forward(self, x):
-        x = self.bn(self.conv(x))
-        return F.relu(x) if self.relu else x
-
-
-class AudioBasic(nn.Module):
-    expansion = 1
-
-    def __init__(self, cin, planes, stride):
-        super().__init__()
-        self.conv1 = ConvBN(cin, planes, (3, 3), (stride,) * 2, (1, 1), True)
-        self.conv2 = ConvBN(planes, planes, (3, 3), (1, 1), (1, 1), False)
-        self.downsample = (
-            ConvBN(cin, planes, (1, 1), (stride,) * 2, (0, 0), False)
-            if stride != 1 or cin != planes else None)
-
-    def forward(self, x):
-        res = x if self.downsample is None else self.downsample(x)
-        return F.relu(self.conv2(self.conv1(x)) + res)
-
-
-class AudioBottleneck(nn.Module):
-    expansion = 4
-
-    def __init__(self, cin, planes, stride):
-        super().__init__()
-        cout = planes * 4
-        self.conv1 = ConvBN(cin, planes, (1, 1), (1, 1), (0, 0), True)
-        self.conv2 = ConvBN(planes, planes, (3, 3), (stride,) * 2, (1, 1),
-                            True)
-        self.conv3 = ConvBN(planes, cout, (1, 1), (1, 1), (0, 0), False)
-        self.downsample = (
-            ConvBN(cin, cout, (1, 1), (stride,) * 2, (0, 0), False)
-            if stride != 1 or cin != cout else None)
-
-    def forward(self, x):
-        res = x if self.downsample is None else self.downsample(x)
-        return F.relu(self.conv3(self.conv2(self.conv1(x))) + res)
-
-
-class Audio(nn.Module):
-    def __init__(self, arch="resnet9", in_channels=1):
-        super().__init__()
-        kind, stages, self.feature_dim = AUDIO_ARCHS[arch]
-        block = AudioBasic if kind == "basic" else AudioBottleneck
-        self.stem = ConvBN(in_channels, 64, (7, 7), (2, 2), (3, 3), True)
-        blocks, cin = [], 64
-        for s, (planes, n) in enumerate(zip((64, 128, 256, 512), stages)):
-            for b in range(n):
-                blocks.append(block(cin, planes, 2 if s > 0 and b == 0 else 1))
-                cin = planes * block.expansion
-        self.blocks = nn.ModuleList(blocks)
-
-    def _stem(self, x):
-        return F.max_pool2d(self.stem(x), kernel_size=3, stride=2, padding=1)
-
-    def forward(self, spec):
-        """spec [B, F, T, C] -> [B, feature_dim]."""
-        x = _run(self._stem, spec.permute(0, 3, 1, 2))
-        for block in self.blocks:
-            x = _run(block, x)
-        return x.mean(dim=(2, 3))
+def conv_draw_std(name, shape):
+    """The seed-draw rule of a convolutional tower: every convolution's
+    kernel by ``sqrt(2 / fan_out)`` (kaiming, fan out); every other leaf
+    (BatchNorm's) keeps its constant."""
+    if len(shape) >= 4:
+        return math.sqrt(2.0 / (shape[0] * math.prod(shape[2:])))
+    return 0.0
 
 
 class Heads(nn.Module):
@@ -318,6 +165,16 @@ class Heads(nn.Module):
         self.register_buffer("bn_running_var", torch.ones(headcount, hidden))
         self.proj_weight = nn.Parameter(torch.empty(headcount, hidden, k))
         self.proj_bias = nn.Parameter(torch.zeros(headcount, k))
+
+    def draw_std(self, name, shape):
+        """Dense kernels, and the last layer's bias with its kernel's
+        fan-in, by ``1 / sqrt(3 * fan_in)`` (the spread of torch's Linear
+        default); BatchNorm's leaves keep their constants."""
+        if name in ("hidden_weight", "proj_weight"):
+            return 1.0 / math.sqrt(3 * shape[1])
+        if name == "proj_bias":
+            return 1.0 / math.sqrt(3 * self.proj_weight.shape[1])
+        return 0.0
 
     def forward(self, feats, generator=None):
         """feats [B, D] -> logits [H, B, K]. In train mode the dropout
@@ -347,15 +204,16 @@ def _dropout(x, generator):
 
 
 class Network(nn.Module):
-    """Both towers and both head stacks, under the system's names:
-    ``video_network``, ``audio_network``, ``heads_v``, ``heads_a``."""
+    """Both towers, by name, and both head stacks, each at its tower's
+    feature width, under the system's names: ``video_network``,
+    ``audio_network``, ``heads_v``, ``heads_a``."""
 
-    def __init__(self, audio_arch="resnet9", headcount=10, k=309,
+    def __init__(self, video_arch, audio_arch, headcount, k,
                  audio_channels=1):
         super().__init__()
-        self.video_network = Video()
-        self.audio_network = Audio(audio_arch, audio_channels)
-        self.heads_v = Heads(headcount, 512, k)
+        self.video_network = towers.build(video_arch, 3)
+        self.audio_network = towers.build(audio_arch, audio_channels)
+        self.heads_v = Heads(headcount, self.video_network.feature_dim, k)
         self.heads_a = Heads(headcount, self.audio_network.feature_dim, k)
 
     def features(self, video, spec):

@@ -11,11 +11,11 @@ None, and so does every reader built on this module.
 from __future__ import annotations
 
 
-def of(run, driver):
-    """``(totals, counters)`` of a traced run of ``driver``, or None; the
-    totals and counters are also put in ``run.extra`` (printed as
-    ``reading`` lines)."""
-    if run.workload["driver"] != driver or not run.summary:
+def of(run, traffic):
+    """``(totals, counters)`` of a traced run of a driver of ``traffic``
+    (``Run.traffic``), or None; the totals and counters are also put in
+    ``run.extra`` (printed as ``reading`` lines)."""
+    if run.traffic != traffic or not run.summary:
         return None
     try:
         from selavi_tpu_torch.utils import profiling

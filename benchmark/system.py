@@ -65,8 +65,8 @@ def build(run):
 
 def reference_network(config, device=None):
     with torch.device(device or "cpu"):
-        return Network(config["aud_base_arch"], config["headcount"],
-                       config["mlp_dim"])
+        return Network(config["vid_base_arch"], config["aud_base_arch"],
+                       config["headcount"], config["mlp_dim"])
 
 
 class Feed:

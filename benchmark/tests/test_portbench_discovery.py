@@ -140,3 +140,51 @@ def test_run_fails_without_the_program(tmp_path):
          "vggsound-pretrain", "--seed", "1", "--seconds", "1"],
         capture_output=True, text=True, cwd=tmp_path, timeout=300)
     assert out.returncode != 0 and out.stdout == ""
+
+
+def test_a_new_driver_of_known_traffic_is_read_by_the_existing_readers(
+        tmp_path):
+    """A second pretraining driver (as a four-rank one would be), a new
+    file that declares its ``TRAFFIC``, has its cell's end-to-end metrics
+    read by the readers that are there, in a copy of the benchmark."""
+    copy = tmp_path / "repo"
+    shutil.copytree(ROOT / "benchmark", copy / "benchmark",
+                    ignore=shutil.ignore_patterns("__pycache__", ".cache"))
+    before = digest(copy / "benchmark")
+    (copy / "benchmark/traffic/pretrain_dummy.py").write_text(
+        '"""Pretraining by another driver."""\n\n'
+        "from benchmark.traffic.pretrain import run  # noqa: F401\n\n"
+        'TRAFFIC = "pretrain"\n')
+    wl = json.loads((ROOT / "benchmark/workloads/vggsound-pretrain.json")
+                    .read_text())
+    (copy / "benchmark/workloads/dummy-dp.json").write_text(
+        json.dumps(dict(wl, driver="pretrain_dummy")))
+    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    bench["workloads"].append({"name": "dummy-dp",
+                               "config": "vggsound-r2p1d18-resnet9",
+                               "traffic": "pretrain", "chips": 1,
+                               "why": "a test"})
+    for m in bench["end_to_end"] + bench["per_layer"]:
+        if "vggsound-pretrain" in m.get("workloads", []):
+            m["workloads"].append("dummy-dp")
+    (copy / "BENCHMARK.json").write_text(json.dumps(bench))
+    assert {k: v for k, v in digest(copy / "benchmark").items()
+            if k in before} == before
+    out = subprocess.run(
+        [sys.executable, "-c",
+         "import json, sys; sys.path.insert(0, sys.argv[1]);"
+         "from benchmark import harness;"
+         "b = harness.spec(sys.argv[1]);"
+         "e, c, w = harness.load_cell(b, 'dummy-dp', sys.argv[1]);"
+         "r = harness.Run(cell='dummy-dp', seed=1, seconds=2.0, trace=False,"
+         " config=c, workload=w, device='cpu', setup_s=30.0, window_s=2.0,"
+         " units=300);"
+         "print(r.traffic, json.dumps(harness.read_metrics(b, r,"
+         " sys.argv[1])))",
+         str(copy)], capture_output=True, text=True, cwd=copy, timeout=120)
+    assert out.returncode == 0, out.stderr
+    traffic, metrics = out.stdout.strip().split(" ", 1)
+    assert traffic == "pretrain"
+    assert json.loads(metrics) == {
+        "train_clips_per_s": {"value": 150.0, "unit": "clips/s"},
+        "setup_s": {"value": 30.0, "unit": "s"}}

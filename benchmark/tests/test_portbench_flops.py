@@ -33,8 +33,9 @@ def test_count_matches_hand_count():
 
 
 def test_clip_flops_train_is_three_forwards_less_the_stems():
-    cfg = dict(aud_base_arch="resnet9", headcount=10, mlp_dim=309,
-               num_frames=30, train_crop_size=112, aud_spec_type=2)
+    cfg = dict(vid_base_arch="r2plus1d_18", aud_base_arch="resnet9",
+               headcount=10, mlp_dim=309, num_frames=30, train_crop_size=112,
+               aud_spec_type=2)
     got = flops.clip_flops(cfg, flops.spec_frames(1, 24000))
     # the video stem alone: out [45, 30, 56, 56], 3 x 49 taps; the audio
     # stem: out [64, 129, 50] of a 257 x 99 spectrogram, 49 taps

@@ -65,7 +65,7 @@ def test_the_control_fails_the_limits(cell, cache):
     """The reference in float8 in the system's place fails at least one
     number's limit."""
     r = _tiny_run(cell, cache)
-    got = control.READINGS[r.workload["driver"]](r, faults=False)
+    got = control.READINGS[r.traffic](r, faults=False)
     readings = got["control_fp8"]
     limits = {k: tiny.LIMITS[k] for k in r.workload["limits"]}
     correct, checks = control.judge(readings, limits)

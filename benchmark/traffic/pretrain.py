@@ -27,6 +27,8 @@ from benchmark.reference import inputs as ref_inputs
 from benchmark.reference import train as ref_train
 from benchmark.weights import load_into
 
+TRAFFIC = "pretrain"  # what the readers of a run take it for (harness)
+
 
 def run(r):
     w = r.workload

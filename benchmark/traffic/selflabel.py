@@ -36,6 +36,8 @@ from benchmark.reference.model import Precision
 from benchmark.traffic.pretrain import reference_network_on
 from benchmark.weights import load_into
 
+TRAFFIC = "selflabel"  # what the readers of a run take it for (harness)
+
 
 def cluster_sizes(seed, headcount, k, n, sd):
     """Gaussian cluster sizes ``(N(0, 1) * sd + 1) * n / k`` a head."""

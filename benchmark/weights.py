@@ -3,29 +3,20 @@ to a ``torch.Generator`` there, in float32 (the type the system keeps its
 parameters in under bf16 autocast).
 
 Every parameter of the reference network is a slice of one normal draw,
-scaled as the published initialisers do: convolutions by
-``sqrt(2 / fan_out)`` (kaiming, fan out), dense kernels and biases by
-``1 / sqrt(3 * fan_in)`` (the spread of torch's Linear default);
-BatchNorm scales are 1 and shifts 0, running means 0 and variances 1.
+scaled by the rule of the top-level module that holds it (``draw_std``):
+a tower's own rule (``reference/towers``; the convolutional towers'
+kernels by ``sqrt(2 / fan_out)``, kaiming fan out), and the heads' dense
+kernels and last bias by ``1 / sqrt(3 * fan_in)`` (the spread of torch's
+Linear default). A leaf whose rule gives 0 keeps its constant: BatchNorm
+scales 1 and shifts 0, running means 0 and variances 1.
+
 The same state dict is loaded into the system under test (by name, every
 key of both sides, each shape checked) and into the reference.
 """
 
 from __future__ import annotations
 
-import math
-
 import torch
-
-
-def _std(name, shape):
-    if name.endswith("hidden_weight") or name.endswith("proj_weight"):
-        return 1.0 / math.sqrt(3 * shape[1])
-    if name.endswith("proj_bias"):
-        return None  # scaled with its kernel's fan-in below
-    if len(shape) >= 4:
-        return math.sqrt(2.0 / (shape[0] * math.prod(shape[2:])))
-    return 0.0
 
 
 def make_state(net, seed, device):
@@ -33,8 +24,10 @@ def make_state(net, seed, device):
     ``seed`` on ``device``."""
     state = {k: v.detach().to(device).clone()
              for k, v in net.state_dict().items()}
-    drawn = [k for k, v in net.named_parameters()
-             if _std(k, v.shape) != 0.0]
+    stds = {f"{top}.{k}": module.draw_std(k, v.shape)
+            for top, module in net.named_children()
+            for k, v in module.named_parameters()}
+    drawn = [k for k, std in stds.items() if std != 0.0]
     total = sum(state[k].numel() for k in drawn)
     g = torch.Generator(device=device)
     g.manual_seed(int(seed))
@@ -42,11 +35,7 @@ def make_state(net, seed, device):
     off = 0
     for k in drawn:
         t = state[k]
-        std = _std(k, t.shape)
-        if std is None:
-            std = 1.0 / math.sqrt(3 * state[k.replace("proj_bias",
-                                                      "proj_weight")].shape[1])
-        t.copy_(flat[off:off + t.numel()].view_as(t) * std)
+        t.copy_(flat[off:off + t.numel()].view_as(t) * stds[k])
         off += t.numel()
     return state
 
