@@ -1186,9 +1186,7 @@ def sk_cache_path(torch, sf, device, report, tmp):
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    engine.aggregate_features(trainer.sk_encode, iter(batches), n,
-                              trainer.sk_cfg.feat_dim, device,
-                              feat_dim_a=trainer.sk_cfg.feat_dim_a)
+    engine.aggregate_features(trainer.sk_encode, iter(batches), n, device)
     torch.cuda.synchronize()
     encode_s = time.perf_counter() - t0
     del trainer, batches

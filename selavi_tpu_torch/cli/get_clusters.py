@@ -33,8 +33,7 @@ from selavi_tpu_torch.data.factory import (
 from selavi_tpu_torch.data.loader import DataLoader, decode_wire_batches
 from selavi_tpu_torch.device import resolve_device
 from selavi_tpu_torch.eval.get_clusters import dump_cluster_matrices
-from selavi_tpu_torch.models.av_model import load_model
-from selavi_tpu_torch.models.r2plus1d import VIDEO_FEATURE_DIM
+from selavi_tpu_torch.models.av_model import VIDEO_ARCHS, load_model
 from selavi_tpu_torch.models.resnet_audio import AUDIO_ARCHS
 from selavi_tpu_torch.parallel.dist import distributed
 from selavi_tpu_torch.train import step as steps
@@ -49,6 +48,8 @@ def parse_args(argv=None):
     parser.add_argument("--weights_path", type=str, required=True)
     parser.add_argument("--output_path", type=str, default="ps_matrices.pkl")
     parser.add_argument("--headcount", type=int, default=10)
+    parser.add_argument("--vid_base_arch", type=str, default="r2plus1d_18",
+                        choices=sorted(VIDEO_ARCHS))
     parser.add_argument("--aud_base_arch", type=str, default="resnet9",
                         choices=sorted(AUDIO_ARCHS),
                         help="audio tower arch the checkpoint was trained "
@@ -90,6 +91,9 @@ def _dump(args, device, rank, world_size):
     audio_channels = 2 if args.dual_data else example_shapes(
         args, dataset)[1][-1]
     model = load_model(
+        vid_base_arch=args.vid_base_arch,
+        num_frames=args.num_frames,
+        crop_size=args.train_crop_size,
         aud_base_arch=args.aud_base_arch,
         use_mlp=args.use_mlp,
         headcount=args.headcount,
@@ -116,8 +120,7 @@ def _dump(args, device, rank, world_size):
     try:
         out = dump_cluster_matrices(
             encode_fn, head_logits_fn, decode_wire_batches(loader),
-            len(dataset), args.output_path, feat_dim=VIDEO_FEATURE_DIM,
-            feat_dim_a=AUDIO_ARCHS[args.aud_base_arch][2], device=device)
+            len(dataset), args.output_path, device=device)
     finally:
         loader.close()
     if rank == 0:

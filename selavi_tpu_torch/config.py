@@ -133,7 +133,11 @@ def parse_arguments() -> argparse.ArgumentParser:
 
     # #### model parameters ####
     parser.add_argument("--vid_base_arch", default="r2plus1d_18", type=str,
-                        choices=["r2plus1d_18"], help="video architecture")
+                        choices=["r2plus1d_18", "timesformer_base"],
+                        help="video architecture: R(2+1)D-18, or "
+                             "TimeSformer-Base (divided space-time "
+                             "attention, sized for --num_frames frames of "
+                             "--train_crop_size px)")
     parser.add_argument("--aud_base_arch", default="resnet9", type=str,
                         choices=["resnet9", "resnet18", "resnet34",
                                  "resnet50"],

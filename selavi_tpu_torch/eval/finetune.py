@@ -35,7 +35,7 @@ from torch import nn
 from selavi_tpu_torch.data.loader import batch_valid
 from selavi_tpu_torch.models.common import FlaxBatchNorm
 from selavi_tpu_torch.models.heads import dropout
-from selavi_tpu_torch.models.r2plus1d import VIDEO_FEATURE_DIM, R2Plus1D18
+from selavi_tpu_torch.models.av_model import build_video_tower
 from selavi_tpu_torch.ops.preprocess import (
     augment_video_batch,
     normalize_video,
@@ -60,26 +60,30 @@ class FinetuneModel(nn.Module):
     dropout draws from the ``generator`` argument. The head (norm, BN,
     classifier) runs in fp32 outside any autocast, as JAX's does. With
     ``shard = (rank, world)`` the dropout mask is the global batch's rows
-    ``rank::world`` (``heads.dropout``)."""
+    ``rank::world`` (``heads.dropout``). The tower is built by name
+    (``av_model.VIDEO_ARCHS``; R(2+1)D-18 by default, TimeSformer at 8 x
+    224 x 224) and the head sized at its ``feature_dim``."""
 
     def __init__(self, num_classes: int, use_dropout: bool = False,
                  use_bn: bool = False, use_l2_norm: bool = False,
                  midplanes_mode: str = "parity",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 vid_base_arch: str = "r2plus1d_18"):
         super().__init__()
         g = generator if generator is not None else torch.Generator()
         self.use_dropout = use_dropout
         self.use_l2_norm = use_l2_norm
-        self.base = R2Plus1D18(midplanes_mode, g)
-        self.final_bn = FlaxBatchNorm(VIDEO_FEATURE_DIM) if use_bn else None
-        self.classifier = nn.Linear(VIDEO_FEATURE_DIM, num_classes)
+        self.base = build_video_tower(vid_base_arch, midplanes_mode, g)
+        width = self.base.feature_dim
+        self.final_bn = FlaxBatchNorm(width) if use_bn else None
+        self.classifier = nn.Linear(width, num_classes)
         with torch.no_grad():
             nn.init.orthogonal_(self.classifier.weight, generator=g)
             self.classifier.bias.zero_()
 
     def forward(self, video, generator: Optional[torch.Generator] = None,
                 shard: tuple[int, int] = (0, 1)):
-        x = self.base(video)  # fp32 [B, 512]
+        x = self.base(video, generator=generator, shard=shard)  # fp32 [B, D]
         with torch.autocast(x.device.type, enabled=False):
             x = x.to(self.classifier.weight.dtype)
             if self.use_l2_norm:

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import logging
 import pickle
-from typing import Callable, Iterator, Optional
+from typing import Callable, Iterator
 
 import numpy as np
 import torch
@@ -39,16 +39,14 @@ def dump_cluster_matrices(
     batch_iter: Iterator[dict],
     n: int,
     out_path: str,
-    feat_dim: int = 512,
-    feat_dim_a: Optional[int] = None,
     device: DeviceLike = None,
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Returns ``(PS_v [H,N,K], labels [N], PS_a [H,N,K])`` as numpy and
     writes them to ``out_path`` in the reference schema (per-head float32
     tensors, int64 labels). ``encode_fn(video, audio) -> (feat_v,
     feat_a)`` gives eval-mode pooled features, ``head_logits_fn(feats,
-    modality) -> [H, N, K]`` applies every head; the accumulators live on
-    ``device`` (the card unless the caller names another). Under a process
+    modality) -> [H, N, K]`` applies every head; the accumulators, as
+    wide as those features, live on ``device`` (the card unless the caller names another). Under a process
     group every rank returns the whole dump and rank 0 writes it."""
     from selavi_tpu_torch.selflabel.engine import aggregate_features
 
@@ -64,8 +62,7 @@ def dump_cluster_matrices(
             yield batch
 
     feats_v, feats_a = aggregate_features(
-        encode_fn, with_labels(batch_iter), n, feat_dim, device,
-        feat_dim_a=feat_dim_a)
+        encode_fn, with_labels(batch_iter), n, device)
     idx, labels, valid = (torch.cat(c) for c in zip(*rows))
     labels_dev[mesh.gather_rows(idx, valid)] = mesh.gather_rows(labels, valid)
     labels = labels_dev.cpu().numpy()

@@ -44,8 +44,9 @@ def make_retrieval_encode_fn(model, pool_op: str = "max",
                              compute_dtype: torch.dtype = torch.float32
                              ) -> Callable:
     """``encode(video_u8 [B,T,H,W,3]) -> [B, D_flat]`` fp32: normalize, the
-    eval-mode feature map ``[B, t, h, w, 512]``, a 2x2x2 max or average
-    pool, flattened channels-last."""
+    eval-mode feature map ``[B, t, h, w, C]`` (C the tower's width: 512
+    for R(2+1)D-18, 768 for TimeSformer's patch tokens), a 2x2x2 max or
+    average pool, flattened channels-last."""
     if pool_op not in ("max", "avg"):
         raise ValueError(f"pool_op {pool_op!r}: max or avg")
 

@@ -169,7 +169,16 @@ def _walk_heads(w: _Walker, name: str, use_mlp: bool) -> None:
     w.leaf(f"{name}.proj_bias", "params", name, "heads", "proj", "bias")
 
 
+def jax_video_tower(arch: str) -> None:
+    """Raise for a video tower that the JAX package does not have: its
+    layouts exist for R(2+1)D-18 alone."""
+    if arch != "r2plus1d_18":
+        raise ValueError(f"the JAX package has no {arch!r} video tower: "
+                         f"only r2plus1d_18 maps to and from its layouts")
+
+
 def _walk(w: _Walker, model, state) -> None:
+    jax_video_tower(model.video_network.arch)
     _walk_video(w, lambda key: key in state)
     _walk_audio(w, len(model.audio_network.blocks),
                 isinstance(model.audio_network.blocks[0], Bottleneck2D),
@@ -190,6 +199,7 @@ def _walk_finetune(w: _Walker, model, state) -> None:
     """``FinetuneModel``: flax ``base`` (the tower), ``final_bn`` (flax
     BatchNorm: scale/bias, mean/var) and ``classifier`` (Dense kernel
     ``[I, O]`` -> Linear weight ``[O, I]``)."""
+    jax_video_tower(model.base.arch)
     _walk_video(w, lambda key: key in state, "base", "base")
     if model.final_bn is not None:
         w.bn("final_bn", "final_bn")

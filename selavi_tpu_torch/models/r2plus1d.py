@@ -144,6 +144,8 @@ class BasicBlock2Plus1D(nn.Module):
 
 class R2Plus1D18(nn.Module):
     PLAN = ((64, 64, 1), (64, 128, 2), (128, 256, 2), (256, 512, 2))
+    arch = "r2plus1d_18"
+    feature_dim = VIDEO_FEATURE_DIM
 
     def __init__(self, midplanes_mode: str = "parity",
                  generator: Optional[torch.Generator] = None):
@@ -161,8 +163,11 @@ class R2Plus1D18(nn.Module):
             setattr(self, f"layer{stage}_block1", BasicBlock2Plus1D(
                 planes, planes, 1, midplanes_mode, g))
 
-    def forward(self, video, return_map: bool = False):
-        """video [B, T, H, W, 3] -> [B, 512] fp32 (or the pre-GAP map)."""
+    def forward(self, video, return_map: bool = False, generator=None,
+                shard=(0, 1)):
+        """video [B, T, H, W, 3] -> [B, 512] fp32 (or the pre-GAP map).
+        ``generator`` and ``shard`` are the video towers' common arguments;
+        this tower draws nothing."""
         x = video.permute(0, 4, 1, 2, 3)
         x = F.relu(self.stem_bn1(self.stem_spatial(x)))
         x = F.relu(self.stem_bn2(self.stem_temporal(x)))

@@ -210,8 +210,8 @@ class GridParallel(torch.nn.Module):
             device, grid.data_group)
 
     def forward(self, video, audio, generator=None, shard=(0, 1)):
-        return self.heads(*self.towers(video, audio), generator=generator,
-                          shard=shard)
+        return self.heads(*self.towers(video, audio, generator, shard),
+                          generator=generator, shard=shard)
 
 
 def grid_parallel(model, grid: Grid, device: torch.device):

@@ -93,26 +93,21 @@ class SKConfig:
     # keep the first aggregation pass's device batches for the other
     # groups: one read of the dataset an SK step (N samples on the device)
     cache_group_batches: bool = False
-    feat_dim: int = 512  # video GAP width
-    feat_dim_a: Optional[int] = None  # audio GAP width; None -> feat_dim
 
 
 def aggregate_features(
     encode_fn: Callable,
     batch_iter: Iterator[dict],
     n: int,
-    feat_dim: int,
     device,
-    feat_dim_a: Optional[int] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Forward every batch and scatter its features into ``[N, D]`` fp32
-    tensors on ``device`` at the batch's ``index`` rows. Under a process
+    tensors on ``device`` at the batch's ``index`` rows, each ``D`` the
+    width of the features that ``encode_fn`` gives. Under a process
     group the rank's rows are kept and, after its last batch, gathered
     from every rank (``gather_rows``, the wrap-padding dropped) before the
     scatter, in ``timings["gather_s"]``."""
-    ps_v = torch.zeros(n, feat_dim, dtype=torch.float32, device=device)
-    ps_a = torch.zeros(n, feat_dim_a or feat_dim, dtype=torch.float32,
-                       device=device)
+    ps_v = ps_a = None
     grouped = mesh.world()[2] is not None
     kept = []
     batches = iter(batch_iter)
@@ -125,6 +120,9 @@ def aggregate_features(
         wait = "engine.data"
         feat_v, feat_a = encode_fn(
             batch["video"], batch.get("audio", batch.get("audio_pcm")))
+        if ps_v is None:
+            ps_v, ps_a = (torch.zeros(n, f.shape[1], dtype=torch.float32,
+                                      device=device) for f in (feat_v, feat_a))
         idx = torch.as_tensor(batch["index"], dtype=torch.long).to(device)
         if grouped:
             kept.append((idx, batch_valid(batch, device), feat_v.float(),
@@ -132,6 +130,8 @@ def aggregate_features(
             continue
         ps_v.index_copy_(0, idx, feat_v.float())
         ps_a.index_copy_(0, idx, feat_a.float())
+    if ps_v is None:
+        raise ValueError("no batch to aggregate features from")
     if grouped:
         _synchronize(device)
         with span("engine.gather") as gather:
@@ -216,10 +216,7 @@ def cluster(
                 batch_iter = _kept(make_batch_iter(), cached_batches)
             else:
                 batch_iter = iter(cached_batches)
-            ps_v, ps_a = aggregate_features(
-                encode_fn, batch_iter, n, cfg.feat_dim, device,
-                feat_dim_a=cfg.feat_dim_a,
-            )
+            ps_v, ps_a = aggregate_features(encode_fn, batch_iter, n, device)
             _synchronize(device)
         timings["aggregate_s"] += aggregate.seconds
 

@@ -66,7 +66,6 @@ from selavi_tpu_torch.data.factory import audio_cfg_from_args, example_shapes
 from selavi_tpu_torch.data.loader import DataLoader, decode_wire_batches
 from selavi_tpu_torch.device import resolve_device
 from selavi_tpu_torch.models.av_model import load_model
-from selavi_tpu_torch.models.resnet_audio import AUDIO_ARCHS
 from selavi_tpu_torch.parallel import mesh
 from selavi_tpu_torch.parallel.dist import StopVote, sync_hosts
 from selavi_tpu_torch.selflabel.engine import SKConfig, cluster
@@ -122,6 +121,8 @@ class Trainer:
             # the stem takes the example's audio channels: 2 for dual_data
             audio_channels=example_shapes(args, dataset)[1][-1],
             grid=self.grid,
+            num_frames=args.num_frames,
+            crop_size=args.train_crop_size,
         )
         self.rank, self.world_size, _ = mesh.world()
         self.shard = (self.rank, self.world_size)
@@ -180,7 +181,6 @@ class Trainer:
             sk_backend=getattr(args, "sk_backend", "auto"),
             sk_m_bf16=getattr(args, "sk_bf16", False),
             cache_group_batches=getattr(args, "sk_cache_batches", False),
-            feat_dim_a=AUDIO_ARCHS[args.aud_base_arch][2],
         )
         self.sk_schedule = make_sk_schedule(
             args.epochs, self.batches_per_epoch, args.nopts,

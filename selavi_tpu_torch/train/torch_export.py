@@ -270,6 +270,10 @@ def save_reference_checkpoint(
 def model_for_state_dict(state: Dict[str, torch.Tensor]):
     """A CPU AVModel of the architecture that ``state`` (a port
     ``state_dict``) was saved from, with ``state`` loaded."""
+    if "video_network.cls_token" in state:
+        raise ValueError("timesformer_base checkpoint: the JAX package and "
+                         "the reference layout have no TimeSformer tower, "
+                         "so it cannot be exported")
     proj = state["heads_v.proj_weight"]  # [H, I, K]
     blocks = {k.split(".")[2] for k in state
               if k.startswith("audio_network.blocks.")}

@@ -140,6 +140,10 @@ def port_state_from_reference(model, ref: Dict[str, torch.Tensor]
     """The port ``state_dict`` of ``model``'s architecture built from a
     reference state_dict; raises ``ValueError`` naming what does not fit
     (a key either side lacks, or a shape)."""
+    arch = model.video_network.arch
+    if arch != "r2plus1d_18":
+        raise ValueError(f"the reference layout has no {arch!r} video "
+                         f"tower: only r2plus1d_18 imports")
     target = model.state_dict()
     pairs = {**_video_pairs(model), **_audio_pairs(model)}
     out: Dict[str, torch.Tensor] = {}

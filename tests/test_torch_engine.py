@@ -92,7 +92,7 @@ def test_cluster_matches_jax(backend, distribution, ind_groups, cache):
 
     cfg = SKConfig(headcount=h, num_clusters=k, ind_groups=ind_groups,
                    match=False, distribution=distribution, sk_backend=backend,
-                   feat_dim=d, cache_group_batches=cache)
+                   cache_group_batches=cache)
     labels, state, metrics = cluster(
         encode_fn=lambda v, a: (v, a),
         head_logits_fn=lambda f, m: torch.einsum(
@@ -178,7 +178,7 @@ def test_cluster_with_matching_matches_jax(host_runtime, ind_groups):
             return heads_a(f)
 
     cfg = SKConfig(headcount=h, num_clusters=k, ind_groups=ind_groups,
-                   match=True, sk_backend="plain", feat_dim=d)
+                   match=True, sk_backend="plain")
     prng = np.random.default_rng(7)
     labels, _, metrics = cluster(
         encode_fn=lambda v, a: (v, a), head_logits_fn=head_logits_fn,
@@ -272,8 +272,7 @@ def test_matching_at_first_step_aligns_audio_heads():
         encode_fn=lambda v, a: (v, a), head_logits_fn=head_logits_fn,
         make_batch_iter=lambda: iter([{"video": feats, "audio": feats,
                                        "index": np.arange(n)}]),
-        n=n, cfg=SKConfig(headcount=h, num_clusters=k, match=True,
-                          feat_dim=d),
+        n=n, cfg=SKConfig(headcount=h, num_clusters=k, match=True),
         selflabels=np.zeros((n, h), np.int32),
         marginal_state=MarginalState(), iter_num=0,
         np_rng=np.random.default_rng(2), device="cpu", audio_heads=heads_a,
@@ -292,7 +291,7 @@ def test_aggregate_features_scatter_by_index():
                 "audio": torch.from_numpy(-data[order[s:s + 7]]),
                 "index": order[s:s + 7]} for s in range(0, n, 7)]
     ps_v, ps_a = aggregate_features(lambda v, a: (v, a), iter(batches), n,
-                                    d, "cpu")
+                                    "cpu")
     np.testing.assert_array_equal(ps_v.numpy(), data)
     np.testing.assert_array_equal(ps_a.numpy(), -data)
 

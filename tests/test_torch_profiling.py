@@ -224,7 +224,7 @@ def test_an_sk_step_records_a_loader_start_a_pass(ind_groups, cache):
     wa = (rng.standard_normal((h, d, k)) * 0.05).astype(np.float32)
     cfg = SKConfig(headcount=h, num_clusters=k, ind_groups=ind_groups,
                    match=False, distribution="gauss", sk_backend="plain",
-                   feat_dim=d, cache_group_batches=cache)
+                   cache_group_batches=cache)
     with profile(activities=[ProfilerActivity.CPU]):
         cluster(
             encode_fn=lambda v, a: (v, a),

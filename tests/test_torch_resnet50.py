@@ -127,7 +127,7 @@ def test_trainer_clusters_resnet50_features(monkeypatch, tmp_path):
     args = parse_arguments().parse_args(
         TINY.split() + ["--aud_base_arch", "resnet50"])
     trainer = Trainer(args, _dataset(args), device="cpu")
-    assert trainer.sk_cfg.feat_dim_a == 2048
+    assert trainer.model.audio_network.feature_dim == 2048
     assert trainer.model.heads_a.hidden_weight.shape[1] == 2048
     history = trainer.fit()
     sk = [h for h in history if "sk_cost" in h]
