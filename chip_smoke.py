@@ -6,7 +6,7 @@ Run from the root of a checkout on a machine with one CUDA card:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels and its C++ host data runtime from the
-checkout's sources (``selavi_tpu_torch/csrc/{fused_sk,conv3x3,temporal_conv}.cu`` and
+checkout's sources (``selavi_tpu_torch/csrc/{fused_sk,conv3x3,temporal_conv,bn_act}.cu`` and
 ``selavi_tpu_torch/native/data_runtime.cpp`` into
 ``build/selavi_tpu_torch/``, one ``nvcc`` per source and ``g++``, started
 together; it fails if the host runtime does not load), holds each kernel
@@ -112,6 +112,13 @@ within one bf16 ulp, bit-identical on repeat), the model's
 its plain version again and timed at batch 128 at the stem's, layer1's
 and layer4-block1's shapes beside its byte bound, its plain version and
 cuDNN as the model called it before.
+The eval-mode BatchNorm + residual + ReLU kernel (``ops/bn_act.py``) is
+held against the ATen composition it replaced within one bf16 ulp at every
+BatchNorm call of the SK step's towers (as ``train/step.py::encode`` makes
+them) at batch 128, bit-identical on repeat and keeping x's strides, and
+timed there beside its byte bound and that composition; the SK step with
+``--ind_groups 2`` launches it once a BatchNorm call, video and audio
+(channels fastest or, the audio tower's on the card's log-mel, NCHW).
 Then it times the SK kernel and the train step, and the synthetic epoch
 with the host's native data runtime on threads, then with its numpy twins,
 then twice native on spawned worker processes. For
@@ -315,6 +322,7 @@ CONV_KERNELS = (
 )
 # R(2+1)D's temporal convs a video forward, each one hand-kernel launch
 TEMPORAL_CONVS = 17
+VIDEO_BATCHNORMS = 37  # R(2+1)D-18's BatchNorm layers, a call each
 
 
 def check(cond: bool, what: str) -> None:
@@ -1142,19 +1150,35 @@ def sk_cache_path(torch, sf, device, report, tmp):
     the fused SK kernel launched by both."""
     from selavi_tpu_torch.config import parse_arguments
     from selavi_tpu_torch.data.factory import build_dataset
+    from selavi_tpu_torch.models.common import FlaxBatchNorm
+    from selavi_tpu_torch.ops import bn_act as ba
     from selavi_tpu_torch.train import loop
+
+    def takes(mod, args, kwargs, out):
+        params = (mod.weight, mod.bias, mod.running_mean, mod.running_var)
+        out.append(ba.kernel_takes(args[0], params, kwargs.get("residual")))
 
     for cache in ("false", "true"):
         argv = MAIN_ARGS.split() + ["--ind_groups", "2", "--sk_cache_batches",
                                     cache, "--dump_path", tmp]
         args = parse_arguments().parse_args(argv)
         trainer = loop.Trainer(args, build_dataset(args))
+        # the BatchNorm calls the kernel takes, and the video forwards
+        taking, forwards = [], []
+        for mod in trainer.model.modules():
+            if isinstance(mod, FlaxBatchNorm):
+                mod.register_forward_pre_hook(
+                    lambda m, a, k: takes(m, a, k, taking), with_kwargs=True)
+        trainer.model.video_network.register_forward_hook(
+            lambda *_: forwards.append(1))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         sf.reset_launches()
+        ba.reset_launches()
         ran = trainer.maybe_cluster(0)
         torch.cuda.synchronize()
         launches = sf.launches
+        bn_launches = ba.launches
         peak = torch.cuda.max_memory_allocated() / 1e9
         sk = trainer.history[-1]
         loaders = trainer._eval_iter_count
@@ -1170,6 +1194,15 @@ def sk_cache_path(torch, sf, device, report, tmp):
               f"{label}: {loaders} aggregation loaders")
         check(launches > 0 and launches == sk["sk_iters_total"],
               f"{label}: one fused SK launch per solver iteration")
+        print(f"SK step ({label}): bn_act launches {bn_launches} over "
+              f"{len(forwards)} eval forwards, {sum(taking)} of "
+              f"{len(taking)} BatchNorm calls the kernel takes", flush=True)
+        check(len(forwards) > 0 and all(taking)
+              and bn_launches == len(taking)
+              and bn_launches >= VIDEO_BATCHNORMS * len(forwards),
+              f"{label}: one bn_act launch a BatchNorm call, video and "
+              f"audio")
+        report["bn_act_sk_launches"] = bn_launches
         report[f"sk_cache_{cache}"] = {"sk_time": sk["sk_time"],
                                        "loaders": loaders,
                                        "peak_mem_gb": peak}
@@ -1211,8 +1244,8 @@ def resnet50_path(torch, sf, device, report, tmp):
                                 tmp]
     args = parse_arguments().parse_args(argv)
     trainer = loop.Trainer(args, build_dataset(args))
-    check(trainer.model.audio_network.feature_dim == 2048
-          and trainer.sk_cfg.feat_dim_a == 2048, "resnet50: 2048-d features")
+    check(trainer.model.audio_network.feature_dim == 2048,
+          "resnet50: 2048-d features")
     batch = decode_wire_batch(next(iter(trainer.loader)))
     labels = torch.zeros(batch["index"].shape[0], args.headcount,
                          dtype=torch.long, device=device)
@@ -1811,6 +1844,32 @@ def temporal_conv_path(torch, tc, device, report):
     report["temporal_max_abs_err"] = max(
         [worst_abs] + [r["max_abs_err"] for r in rows])
     report["temporal_bench"] = rows
+
+
+def bn_act_path(torch, device, report):
+    """Phase 2e: the eval-mode BatchNorm + residual + ReLU kernel at every
+    BatchNorm call of the SK step's towers at batch 128
+    (``experiments/bn_act.py``): within one bf16 ulp of the ATen
+    composition it replaced, bit-identical on repeat, x's strides kept,
+    timed beside its byte bound and that composition."""
+    from selavi_tpu_torch.experiments import bn_act as bench
+
+    calls = bench.bn_calls(device)
+    for call in calls:
+        print(f"BatchNorm call {call['name']}: {call['shape']} "
+              f"{call['dtype']} {call['layout']}, relu {call['relu']}, "
+              f"residual {call['residual']}, kernel {call['kernel']}",
+              flush=True)
+    video = [c for c in calls if c["name"].startswith("video_network.")]
+    check(len(video) == VIDEO_BATCHNORMS and all(c["kernel"] for c in calls),
+          f"the kernel takes all {len(calls)} BatchNorm calls, "
+          f"{VIDEO_BATCHNORMS} of them video")
+    rows = bench.bench(device, calls=calls)
+    for r in rows:
+        check(r["ulps"] <= 1.0, f"bn_act {r['name']} within one ulp")
+        check(r["repeat_equal"], f"bn_act {r['name']}: deterministic")
+        check(r["strides_kept"], f"bn_act {r['name']}: x's strides kept")
+    report["bn_act_bench"] = rows
 
 
 def conv_kernels_vs_plain(torch, conv, device, report):
@@ -2450,6 +2509,7 @@ def main() -> int:
         return grid_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     from selavi_tpu_torch import measure, native
     from selavi_tpu_torch.ops import _build
+    from selavi_tpu_torch.ops import bn_act as ba
     from selavi_tpu_torch.ops import conv3x3 as conv
     from selavi_tpu_torch.ops import sinkhorn_fused as sf
     from selavi_tpu_torch.ops import temporal_conv as tc
@@ -2471,9 +2531,9 @@ def main() -> int:
     # One nvcc per source and g++ for the host data runtime, started
     # together.
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(4) as pool:
+    with ThreadPoolExecutor(5) as pool:
         libs = list(pool.map(lambda m: m.build_library(),
-                             (sf, conv, native, tc)))
+                             (sf, conv, native, tc, ba)))
     print(f"built {', '.join(lib.name for lib in libs)} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     print(f"host data runtime: {libs[2].name} (g++ "
@@ -2485,6 +2545,7 @@ def main() -> int:
     solver_fused_vs_plain(torch, sf, device, report)
     conv_kernels_vs_plain(torch, conv, device, report)
     temporal_conv_path(torch, tc, device, report)
+    bn_act_path(torch, device, report)
     frontend_and_yuv(torch, device, report)
     from selavi_tpu_torch.data import decoder
 
@@ -2661,6 +2722,23 @@ def main() -> int:
         "max_abs_err": report["temporal_max_abs_err"],
         "ms": t["ms"],
         "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"],
+        "library_ms": t["library_ms"],
+    })
+    # The BatchNorm kernel at layer1's 144-wide midplane at batch 128 (the
+    # largest call); its launches over the --ind_groups 2 SK step.
+    t = next(r for r in report["bn_act_bench"]
+             if r["name"] == "video_network.layer1_block0.conv1.bn_mid")
+    kernels.append({
+        "name": "bn_act",
+        "route": "cuda",
+        "source": "selavi_tpu_torch/csrc/bn_act.cu",
+        "replaces": None,
+        "launches": report["bn_act_sk_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in report["bn_act_bench"]),
+        "ms": t["ms"],
+        "plain_ms": t["library_ms"],
         "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"],
         "library_ms": t["library_ms"],

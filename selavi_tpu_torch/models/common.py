@@ -10,8 +10,14 @@
   (``GlobalBatchNorm``), as GSPMD's BatchNorm does over a sharded batch:
   over the default group for the towers, over a grid's data group for
   the heads (``models/heads.py``: the ranks that hold the same heads).
-* ``ConvBN``: Conv -> FlaxBatchNorm [-> ReLU] with explicit torch-style
-  padding (``selavi_tpu/models/common.py::ConvBN``).
+  ``FlaxBatchNorm.forward(x, relu, residual)`` also takes the residual add
+  and the ReLU that follow it in the towers. In eval mode with no gradient
+  to keep, the three go to ``ops/bn_act.py::bn_act``: one pass of its
+  kernel on a CUDA tensor (which raises on one it does not take), the ops
+  as they always were on a CPU tensor. In training, or where a gradient
+  is needed: ``flax_batch_norm``, the add, ``F.relu``.
+* ``ConvBN``: Conv -> FlaxBatchNorm [-> + residual] [-> ReLU] with explicit
+  torch-style padding (``selavi_tpu/models/common.py::ConvBN``).
 * Initializers drawn from an explicit ``torch.Generator``: kaiming-normal
   fan-out for convs (the JAX package's ``conv_kaiming_init``) and the
   torch-Linear uniform bounds for dense layers.
@@ -26,6 +32,8 @@ import torch
 import torch.distributed as tdist
 import torch.nn.functional as F
 from torch import nn
+
+from selavi_tpu_torch.ops import bn_act
 
 BN_MOMENTUM = 0.9  # flax convention: fraction of the old running stat kept
 BN_EPS = 1e-5
@@ -160,9 +168,21 @@ class FlaxBatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 
-    def forward(self, x):
-        return flax_batch_norm(x, self.weight, self.bias, self.running_mean,
-                               self.running_var, self.training)
+    def forward(self, x, relu: bool = False, residual=None):
+        """BatchNorm of x, then ``+ residual`` where one is given, then ReLU
+        where ``relu``. ``bn_act.bn_act`` in eval mode where no gradient is
+        needed (the kernel's pass on the card); otherwise
+        ``flax_batch_norm``, the add and ``F.relu``, as separate ops."""
+        params = (self.weight, self.bias, self.running_mean,
+                  self.running_var)
+        needs_grad = torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, residual, *params))
+        if not self.training and not needs_grad:
+            return bn_act.bn_act(x, *params, BN_EPS, relu, residual)
+        y = flax_batch_norm(x, *params, self.training)
+        if residual is not None:
+            y = y + residual
+        return F.relu(y) if relu else y
 
 
 def _conv_cls(ndim: int):
@@ -179,7 +199,7 @@ def make_conv(in_ch: int, out_ch: int, kernel: Sequence[int],
 
 
 class ConvBN(nn.Module):
-    """Conv (no bias) -> FlaxBatchNorm [-> ReLU]."""
+    """Conv (no bias) -> FlaxBatchNorm [-> + residual] [-> ReLU]."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: Sequence[int],
                  stride: Sequence[int], padding: Sequence[int],
@@ -190,6 +210,5 @@ class ConvBN(nn.Module):
         self.bn = FlaxBatchNorm(out_ch)
         self.use_relu = use_relu
 
-    def forward(self, x):
-        x = self.bn(self.conv(x))
-        return F.relu(x) if self.use_relu else x
+    def forward(self, x, residual=None):
+        return self.bn(self.conv(x), relu=self.use_relu, residual=residual)

@@ -105,7 +105,7 @@ class Conv2Plus1D(nn.Module):
         self.temporal = TemporalConv3d(mid, out_planes, stride, generator)
 
     def forward(self, x):
-        return self.temporal(F.relu(self.bn_mid(self.spatial(x))))
+        return self.temporal(self.bn_mid(self.spatial(x), relu=True))
 
 
 class Downsample(nn.Module):
@@ -136,10 +136,9 @@ class BasicBlock2Plus1D(nn.Module):
         )
 
     def forward(self, x):
-        out = F.relu(self.bn1(self.conv1(x)))
-        out = self.bn2(self.conv2(out))
         residual = x if self.downsample is None else self.downsample(x)
-        return F.relu(out + residual)
+        out = self.bn1(self.conv1(x), relu=True)
+        return self.bn2(self.conv2(out), relu=True, residual=residual)
 
 
 class R2Plus1D18(nn.Module):
@@ -169,8 +168,8 @@ class R2Plus1D18(nn.Module):
         ``generator`` and ``shard`` are the video towers' common arguments;
         this tower draws nothing."""
         x = video.permute(0, 4, 1, 2, 3)
-        x = F.relu(self.stem_bn1(self.stem_spatial(x)))
-        x = F.relu(self.stem_bn2(self.stem_temporal(x)))
+        x = self.stem_bn1(self.stem_spatial(x), relu=True)
+        x = self.stem_bn2(self.stem_temporal(x), relu=True)
         for stage in range(1, 5):
             x = getattr(self, f"layer{stage}_block0")(x)
             x = getattr(self, f"layer{stage}_block1")(x)

@@ -33,7 +33,8 @@ class BasicBlock2D(nn.Module):
         super().__init__()
         self.conv1 = ConvBN(in_planes, planes, (3, 3), (stride, stride),
                             (1, 1), True, generator)
-        self.conv2 = ConvBN(planes, planes, (3, 3), (1, 1), (1, 1), False,
+        # ReLU after the residual add
+        self.conv2 = ConvBN(planes, planes, (3, 3), (1, 1), (1, 1), True,
                             generator)
         self.downsample = (
             ConvBN(in_planes, planes, (1, 1), (stride, stride), (0, 0), False,
@@ -42,9 +43,8 @@ class BasicBlock2D(nn.Module):
         )
 
     def forward(self, x):
-        out = self.conv2(self.conv1(x))
         residual = x if self.downsample is None else self.downsample(x)
-        return F.relu(out + residual)
+        return self.conv2(self.conv1(x), residual=residual)
 
 
 class Bottleneck2D(nn.Module):
@@ -60,7 +60,8 @@ class Bottleneck2D(nn.Module):
                             generator)
         self.conv2 = ConvBN(planes, planes, (3, 3), (stride, stride), (1, 1),
                             True, generator)
-        self.conv3 = ConvBN(planes, out_planes, (1, 1), (1, 1), (0, 0), False,
+        # ReLU after the residual add
+        self.conv3 = ConvBN(planes, out_planes, (1, 1), (1, 1), (0, 0), True,
                             generator)
         self.downsample = (
             ConvBN(in_planes, out_planes, (1, 1), (stride, stride), (0, 0),
@@ -69,9 +70,8 @@ class Bottleneck2D(nn.Module):
         )
 
     def forward(self, x):
-        out = self.conv3(self.conv2(self.conv1(x)))
         residual = x if self.downsample is None else self.downsample(x)
-        return F.relu(out + residual)
+        return self.conv3(self.conv2(self.conv1(x)), residual=residual)
 
 
 class AudioResNet(nn.Module):
